@@ -1,0 +1,141 @@
+"""Layers over sparse voxel grids: conv, batch norm, norm dispatcher.
+
+Counterpart of ``languagegroundedsemseg_tpu/models/layers.py``. Parameter
+names follow the reference state_dict: a conv holds ``kernel`` (and
+``bias``), a norm holds its batch norm as ``bn`` with ``weight``, ``bias``,
+``running_mean`` and ``running_var``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from languagegroundedsemseg_torch.device import resolve_device
+from languagegroundedsemseg_torch.ops.msconv import masked_shift_conv
+from languagegroundedsemseg_torch.ops.onehot_conv import (
+    child_sum_conv,
+    onehot_window_conv,
+    transpose_child_sum_conv,
+)
+from languagegroundedsemseg_torch.ops.spconv import (
+    pointwise_conv,
+    sparse_conv,
+    sparse_conv_parent,
+)
+from languagegroundedsemseg_torch.sparse.types import (
+    ChildSumMap,
+    ConvGraph,
+    MaskedShiftMap,
+    ParentMap,
+)
+
+
+class SparseConv(nn.Module):
+    """Sparse convolution bound to a named kernel map in the ConvGraph.
+
+    ``map_name=None`` is a kernel-size-1 (pointwise) conv with a
+    (Cin, Cout) kernel; otherwise the kernel is (K, Cin, Cout) in the map's
+    slot order (``sparse/offsets.py``). He-normal init with
+    fan_in = K * Cin, drawn from ``generator``.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 map_name: Optional[str] = None, kernel_volume: int = 1,
+                 use_bias: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.map_name = map_name
+        shape = ((in_channels, out_channels) if map_name is None
+                 else (kernel_volume, in_channels, out_channels))
+        fan_in = in_channels * (1 if map_name is None else kernel_volume)
+        w = torch.randn(shape, generator=generator) * (2.0 / fan_in) ** 0.5
+        self.kernel = nn.Parameter(w.to(dev))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=dev))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor, graph: ConvGraph) -> torch.Tensor:
+        w, b = self.kernel, self.bias
+        if self.map_name is None:
+            return pointwise_conv(x, w, b)
+        km = graph.maps[self.map_name]
+        gm = graph.gmaps.get(self.map_name) if graph.gmaps else None
+        if isinstance(gm, ChildSumMap):
+            # down convs: child-sum kernel when window-annotated, scatter
+            # form otherwise — never needs the flat table
+            return child_sum_conv(x, w, gm, b)
+        if gm is None and km.companion:
+            # up convs ride the companion DOWN map's ChildSumMap
+            cgm = graph.gmaps.get(km.companion) if graph.gmaps else None
+            if isinstance(cgm, ChildSumMap):
+                return transpose_child_sum_conv(x, w, cgm, b)
+        if isinstance(gm, ParentMap):
+            return sparse_conv_parent(x, w, gm, b)
+        if isinstance(gm, MaskedShiftMap):
+            # selector kernel when the map carries a window annotation,
+            # masked-shift gather otherwise
+            out = onehot_window_conv(x, w, gm, b)
+            if out is None:
+                out = masked_shift_conv(x, w, gm, b)
+            return out
+        if km.idx.shape[1] == 1 and x.shape[0] > 1:
+            raise RuntimeError(
+                f"conv map '{self.map_name}': every fused path declined "
+                f"(cap={x.shape[0]}, c_in={x.shape[1]}, c_out={w.shape[-1]}) "
+                "but the flat table was dropped as redundant at build time "
+                "(graph_host._drop_redundant_flat_maps). Build the graph "
+                "with drop_redundant=False or keep_flat=True for this map.")
+        return sparse_conv(x, w, km.idx, b, center_slot=km.center_slot)
+
+
+class SparseBatchNorm(nn.Module):
+    """Batch norm whose statistics cover valid rows only (torch/ME
+    semantics): normalization uses the biased batch variance, the running
+    variance the unbiased one, ``running = (1 - momentum) * running +
+    momentum * batch``. In eval mode every row — padding included — is
+    normalized with the running statistics, as the reference does."""
+
+    def __init__(self, channels: int, momentum: float = 0.02,
+                 eps: float = 1e-5, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(channels, device=dev))
+        self.bias = nn.Parameter(torch.zeros(channels, device=dev))
+        self.register_buffer("running_mean", torch.zeros(channels, device=dev))
+        self.register_buffer("running_var", torch.ones(channels, device=dev))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if self.training:
+            m = mask.to(torch.float32)[:, None]
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(dim=0) / cnt
+            var = torch.clamp((xf * xf * m).sum(dim=0) / cnt - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (xf - mean) * inv + self.bias
+
+
+class Norm(nn.Module):
+    """The reference's norm dispatcher, batch norm only: Res16UNet34C uses
+    nothing else (the instance / layer norms come with the model zoo). The
+    batch norm is held as ``bn``, as the reference state_dict names it."""
+
+    def __init__(self, channels: int, momentum: float = 0.02, device="cuda"):
+        super().__init__()
+        self.bn = SparseBatchNorm(channels, momentum=momentum, device=device)
+
+    def forward(self, x, mask):
+        return self.bn(x, mask)

@@ -1,0 +1,112 @@
+"""Build and load the port's hand-written Hopper kernels.
+
+Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ctypes. The build runs
+at first use (or through ``build()``), one nvcc process per source, all
+started together, into the package's git-ignored ``_build/`` directory; each
+library is written to a private temporary file and renamed into place, so a
+concurrent first use never loads a half-written file. Nothing here runs
+when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+from languagegroundedsemseg_torch import BUILD_DIR
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "csrc")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_vp = ctypes.c_void_p
+_i = ctypes.c_int
+# name -> (source file, exported C function, argtypes)
+KERNELS = {
+    "sel_fwd": ("sel_fwd.cu", "lgs_sel_fwd", [_vp] * 5 + [_i] * 5 + [_vp]),
+    "csum": ("csum.cu", "lgs_csum", [_vp] * 4 + [_i] * 8 + [_vp]),
+}
+
+_lock = threading.Lock()
+_funcs: Dict[str, object] = {}
+# name -> compiler output of the last build (ptxas register / smem report)
+build_log: Dict[str, str] = {}
+
+
+def _paths(name):
+    src = os.path.join(CSRC_DIR, KERNELS[name][0])
+    return src, os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.isfile(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def build() -> None:
+    """Compile every stale kernel library now, in parallel. Raises with the
+    compiler output if any source fails."""
+    with _lock:
+        _build_locked(list(KERNELS))
+
+
+def _build_locked(names) -> None:
+    stale = []
+    for name in names:
+        src, so = _paths(name)
+        if not os.path.isfile(so) or os.path.getmtime(so) < os.path.getmtime(src):
+            stale.append(name)
+    if not stale:
+        return
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in stale:
+        src, so = _paths(name)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, so)
+    failed = []
+    for name, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        build_log[name] = out
+        if proc.returncode == 0:
+            os.replace(tmp, so)
+        else:
+            failed.append(f"{name}:\n{out}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def function(name: str):
+    """The C entry point of kernel ``name``, built and loaded on first
+    use, with its argtypes declared (every pointer and the stream as
+    ``c_void_p``, so ctypes never cuts a 64-bit address)."""
+    fn = _funcs.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _funcs.get(name)
+        if fn is None:
+            _build_locked([name])
+            lib = ctypes.CDLL(_paths(name)[1])
+            _, sym, argtypes = KERNELS[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _funcs[name] = fn
+    return fn

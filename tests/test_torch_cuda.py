@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without an NVIDIA GPU they skip (a CUDA kernel has no CPU
+mode). This file imports neither jax nor the JAX package, so it also runs on
+a GPU machine without them; tests/conftest.py imports jax, hence:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Inputs are the graphs of tests/test_torch_kernels.py built by the port's own
+builder; tolerance 1e-5 of max |ref| (same bf16 values summed in f32, only
+the order differs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from languagegroundedsemseg_torch.ops import onehot_conv as oc
+from languagegroundedsemseg_torch.sparse import graph_host as gh
+from languagegroundedsemseg_torch.sparse.offsets import ConvKind
+from oracles import make_cloud
+
+RTOL = 1e-5
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _graph(seed, n, caps, down):
+    rng = np.random.default_rng(seed)
+    coords = make_cloud(rng, n=n, extent=40)
+    coords = coords[np.argsort(gh.pack_keys(coords), kind="stable")]
+    maps = {"k3": gh.MapSpec(0, 0, ConvKind(3), fuse_width=3)}
+    if down:
+        maps["down0"] = gh.MapSpec(0, 1, ConvKind(kernel_size=2, stride=2))
+    g = gh.build_graph(coords, gh.GraphSpec(len(caps), maps), caps,
+                       drop_redundant=False)
+    return rng, g
+
+
+def _rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_run", [96, 32, 8])
+def test_sel_fwd_kernel_matches_plain_version(c_run):
+    dev = _card()
+    rng, g = _graph(4, 3000, (4096,), down=False)
+    m = g.gmaps["k3"].to(dev)
+    assert m.tile > 0
+    pall = torch.from_numpy(rng.normal(size=(4096, 9 * c_run)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    # scramble 10% of the anchors so the window test decides
+    anchors = m.anchors.clone()
+    pick = torch.from_numpy(rng.random(tuple(anchors.shape)) < 0.1).to(dev)
+    anchors[pick] = torch.randint(0, 4097, (int(pick.sum()),), device=dev,
+                                  dtype=torch.int32)
+    args = [m.wstart, anchors, m.mc, pall, 8, m.tile, m.win]
+    n0 = oc.launch_counts["sel_fwd"]
+    got = oc.sel_fwd(*args)
+    torch.cuda.synchronize()
+    assert oc.launch_counts["sel_fwd"] == n0 + 1
+    assert _rel(got, oc.sel_fwd_reference(*args)) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups,c_run", [(1, 32), (2, 32), (2, 256)])
+def test_csum_kernel_matches_plain_version(n_groups, c_run):
+    dev = _card()
+    rng, g = _graph(7 if n_groups == 1 else 11, 2600, (4096, 2048), down=True)
+    if n_groups == 1:
+        m = g.gmaps["down0"]
+    else:
+        m = gh._try_child_sum_map(g.maps["down0"].idx, 4096,
+                                  pin_tilewin=(2, 128, 1024))
+    m = m.to(dev)
+    assert m.tile > 0 and m.n_groups == n_groups
+    pg = oc._parent_groups(oc._abs_parent(m), m.kslot, m.num_slots,
+                           n_groups, m.out_capacity)
+    pall = torch.from_numpy(rng.normal(size=(4096, c_run)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    args = [m.wstart, pg, pall, m.out_capacity, m.tile, m.win, n_groups]
+    n0 = oc.launch_counts["csum"]
+    got = oc.csum(*args)
+    torch.cuda.synchronize()
+    assert oc.launch_counts["csum"] == n0 + 1
+    assert _rel(got, oc.csum_reference(*args)) <= RTOL
