@@ -62,18 +62,26 @@ class SparseConv(nn.Module):
         if self.map_name is None:
             return pointwise_conv(x, w, b)
         km = graph.maps[self.map_name]
-        gm = graph.gmaps.get(self.map_name) if graph.gmaps else None
+        gmaps = graph.gmaps or {}
+        gm = gmaps.get(self.map_name)
+        # a down conv whose companion up map fused to a ParentMap gets a
+        # gather-only backward through it
+        cpm = gmaps.get(km.companion) if km.companion else None
+        companion_parent = ((cpm.parent, cpm.kslot)
+                            if isinstance(cpm, ParentMap) else None)
         if isinstance(gm, ChildSumMap):
             # down convs: child-sum kernel when window-annotated, scatter
             # form otherwise — never needs the flat table
             return child_sum_conv(x, w, gm, b)
-        if gm is None and km.companion:
+        if gm is None and isinstance(cpm, ChildSumMap):
             # up convs ride the companion DOWN map's ChildSumMap
-            cgm = graph.gmaps.get(km.companion) if graph.gmaps else None
-            if isinstance(cgm, ChildSumMap):
-                return transpose_child_sum_conv(x, w, cgm, b)
+            return transpose_child_sum_conv(x, w, cpm, b)
         if isinstance(gm, ParentMap):
-            return sparse_conv_parent(x, w, gm, b)
+            # gather-only backward through the companion down map's table
+            comp = graph.maps.get(gm.companion) if gm.companion else None
+            idx_down = (comp.idx if comp is not None and comp.idx.shape[1] > 1
+                        else None)
+            return sparse_conv_parent(x, w, gm, b, idx_down=idx_down)
         if isinstance(gm, MaskedShiftMap):
             # selector kernel when the map carries a window annotation,
             # masked-shift gather otherwise
@@ -88,7 +96,9 @@ class SparseConv(nn.Module):
                 "but the flat table was dropped as redundant at build time "
                 "(graph_host._drop_redundant_flat_maps). Build the graph "
                 "with drop_redundant=False or keep_flat=True for this map.")
-        return sparse_conv(x, w, km.idx, b, center_slot=km.center_slot)
+        return sparse_conv(x, w, km.idx, b, center_slot=km.center_slot,
+                           mirror_perm=km.mirror_perm,
+                           companion_parent=companion_parent)
 
 
 class SparseBatchNorm(nn.Module):

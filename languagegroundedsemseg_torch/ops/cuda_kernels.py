@@ -32,6 +32,7 @@ _i = ctypes.c_int
 KERNELS = {
     "sel_fwd": ("sel_fwd.cu", "lgs_sel_fwd", [_vp] * 5 + [_i] * 5 + [_vp]),
     "csum": ("csum.cu", "lgs_csum", [_vp] * 4 + [_i] * 8 + [_vp]),
+    "dw": ("dw.cu", "lgs_dw", [_vp] * 6 + [_i] * 8 + [_vp]),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-"""Masked-shift fused sparse convolution for stride-1 k3 kernels (forward).
+"""Masked-shift fused sparse convolution for stride-1 k3 kernels.
 
 Counterpart of ``languagegroundedsemseg_tpu/ops/msconv.py``. Sorted keys put
 a voxel's z+-1 neighbors in its physical prev/next rows, so the table
@@ -14,11 +14,18 @@ overflow COO adds back the anchors the builder routed out of the windows
 Only the reference's direct branch is ported (:153-170, :200-202). Its
 over-budget windowed branch (:171-198) exists because the TPU's gathers
 slow down past a table-size cliff, and computes the same sum.
+
+The backward (:205-291) is gather-only and reuses the same tables: the
+offset region is symmetric, so dX is the forward over the same map with
+mirrored, transposed weights ``W'[k] = W[mirror(k)]^T``; dW re-gathers the
+T3 rows and contracts them with the output gradient.
 """
 
 from __future__ import annotations
 
 import torch
+
+from languagegroundedsemseg_torch.ops.spconv import _wt
 
 
 def _t3(x, mp, mn, mc):
@@ -98,15 +105,86 @@ def _ms_fwd_impl(x, w, mp, mn, mc, anchors, ov_in, ov_out, ov_off, cols):
     return acc * mc[:, None].to(torch.float32)
 
 
+def _put_cols(dw, cols, c, dwg):
+    """Add a (3C, Cout) column contraction into the per-slot list ``dw``:
+    third j of the column belongs to slot cols[j]."""
+    for j, k in enumerate(cols):
+        piece = dwg[j * c:(j + 1) * c]
+        dw[k] = piece if dw[k] is None else dw[k] + piece
+
+
+def _ov_dw_pieces(x, mp, mn, mc, g32, ov_in, ov_out, ov_off, n_cols):
+    """dW of a COO: per column, gathered T3 rows^T @ gradient rows. Yields
+    (column index, (3C, Cout) piece). Guard entries (in = cap, out = cap)
+    gather zero rows on both sides."""
+    if not ov_in.shape[0]:
+        return
+    cap = x.shape[0]
+    gl = _gather_t3_rows(x, mp, mn, mc, ov_in).to(torch.float32)
+    g_pad = torch.cat([g32, g32.new_zeros((1, g32.shape[1]))])
+    go = g_pad[torch.clamp(ov_out.long(), max=cap)]
+    col = _entry_cols(ov_off, ov_in.shape[0])
+    zero = torch.zeros((), device=go.device)
+    for gi in range(n_cols):
+        yield gi, gl.t() @ torch.where((col == gi)[:, None], go, zero)
+
+
+def _ms_dw_impl(x, g32, mp, mn, mc, anchors, ov_in, ov_out, ov_off, cols,
+                k_num):
+    """dW[k] = gathered_k^T @ dOut, re-gathering the fused rows (f32)."""
+    c = x.shape[1]
+    t3 = _t3(x, mp, mn, mc).to(torch.float32)
+    dw = [None] * k_num
+    _put_cols(dw, cols[0], c, t3[:-1].t() @ g32)
+    for gi, col in enumerate(cols[1:]):
+        _put_cols(dw, col, c, t3[anchors[gi].long()].t() @ g32)
+    for gi, dcol in _ov_dw_pieces(x, mp, mn, mc, g32, ov_in, ov_out, ov_off,
+                                  len(cols) - 1):
+        _put_cols(dw, cols[gi + 1], c, dcol)
+    zero = g32.new_zeros((c, g32.shape[1]))
+    return torch.stack([zero if d is None else d for d in dw])
+
+
+class _MaskedShiftConv(torch.autograd.Function):
+    """The reference's ``_ms_core`` custom VJP (:264-291). Saves x and w
+    only; the backward rebuilds T3."""
+
+    @staticmethod
+    def forward(ctx, x, w, msmap, anchors):
+        m = msmap
+        out = _ms_fwd_impl(x, w, m.mp, m.mn, m.mc, anchors, m.ov_in,
+                           m.ov_out, m.ov_off, tuple(m.cols))
+        ctx.save_for_backward(x, w, anchors)
+        ctx.msmap = msmap
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, w, anchors = ctx.saved_tensors
+        m = ctx.msmap
+        g32 = g_out.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # the T3 build masks g's center third with mc (the forward's
+            # output mask, applied on the o side); the trailing * mc zeroes
+            # sentinel-row grads
+            dx = _ms_fwd_impl(g32, _wt(w, m.mirror_perm), m.mp, m.mn,
+                              m.mc, anchors, m.ov_in, m.ov_out, m.ov_off,
+                              tuple(m.cols)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _ms_dw_impl(x, g32 * m.mc[:, None].to(torch.float32), m.mp,
+                             m.mn, m.mc, anchors, m.ov_in, m.ov_out, m.ov_off,
+                             tuple(m.cols), w.shape[0]).to(w.dtype)
+        return dx, dw, None, None
+
+
 def masked_shift_conv(x, w, msmap, bias=None) -> torch.Tensor:
     """Apply a stride-1 k3 sparse conv through a MaskedShiftMap, in f32.
 
     Exact: sentinel rows serve every gap case and the ov COO serves the
     window outliers. Returns (cap, Cout) f32."""
-    out = _ms_fwd_impl(x, w, msmap.mp, msmap.mn, msmap.mc,
-                       _abs_anchors(msmap.anchors), msmap.ov_in, msmap.ov_out,
-                       msmap.ov_off, tuple(msmap.cols))
-    out = out.to(x.dtype).to(torch.float32)
+    out = _MaskedShiftConv.apply(x, w, msmap, _abs_anchors(msmap.anchors))
+    out = out.to(torch.float32)
     if bias is not None:
         out = out + bias * msmap.mc[:, None].to(torch.float32)
     return out

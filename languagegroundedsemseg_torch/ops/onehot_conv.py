@@ -1,65 +1,76 @@
-"""Selector and child-sum sparse convs (forward), and their Hopper kernels.
+"""Selector and child-sum sparse convs, and their Hopper kernels.
 
 Counterpart of ``languagegroundedsemseg_tpu/ops/onehot_conv.py``. Around the
-two kernels this module computes exactly what the reference computes
+three kernels this module computes exactly what the reference computes
 outside its Pallas kernels:
 
 * ``onehot_window_conv`` (stride-1 k3 convs with a window annotation): the
   bf16 masked-shift table T3, ONE bf16 projection GEMM
   ``P = T3 @ [W_center | W_col1..8]``, the selector kernel ``sel_fwd``, and
-  the overflow COO served from P (``_ov_from_pall``).
+  the overflow COO served from P (``_ov_from_pall``). Backward (``_oh_bwd``):
+  dX is the same forward over T3(g) with mirrored, transposed weights (a
+  second ``sel_fwd``); dW is the center contraction, the fused dW kernel
+  ``dw`` for the 8 anchored columns through the inverse tiling, and the dwov
+  COO.
 * ``child_sum_conv`` (down convs): ``P[i] = x[i] @ W[kslot[i]]`` from one
   bf16 GEMM over the one-hot slot stack, the child-sum kernel ``csum``, and
   the f32 overflow COO (``_ov_fwd_plain``); without a window annotation the
-  exact scatter form (``_cs_scatter_impl``).
+  exact scatter form (``_cs_scatter_impl``). Backward (``_cs_bwd``):
+  gather-only through the (parent, kslot) partition.
 * ``transpose_child_sum_conv`` (up convs): a gather through the companion
-  down map's (parent, kslot) partition.
+  down map's (parent, kslot) partition. Backward (``_tcs_bwd``): dX is the
+  child-sum direction (``csum`` when windowed), dW masked contractions.
 
 The routing is the same on every device: the window annotation decides the
 path. Inside a kernel wrapper a CUDA tensor launches the hand-written
-kernel (``csrc/sel_fwd.cu``, ``csrc/csum.cu``) and a CPU tensor runs the
-plain PyTorch version beside it (``sel_fwd_reference``,
-``csum_reference``). There is no fallback from one to the other. The
-reference's TPU probe and VMEM budget checks have no counterpart here.
-
-This slice is forward only: a wrapper given an input that requires grad
-while grad mode is on raises ``NotImplementedError``.
+kernel (``csrc/sel_fwd.cu``, ``csrc/csum.cu``, ``csrc/dw.cu``) and a CPU
+tensor runs the plain PyTorch version beside it (``sel_fwd_reference``,
+``csum_reference``, ``dw_fused_reference``). There is no fallback from one
+to the other. The reference's TPU probe and VMEM budget checks have no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from languagegroundedsemseg_torch.ops import cuda_kernels
 from languagegroundedsemseg_torch.ops.msconv import (
     _abs_anchors,
     _entry_cols,
+    _ov_dw_pieces,
+    _put_cols,
     _t3,
     _wstack,
 )
-from languagegroundedsemseg_torch.ops.spconv import _parent_fwd_impl
+from languagegroundedsemseg_torch.ops.spconv import (
+    _parent_fwd_impl,
+    _slot_dw,
+    _wt,
+)
+from languagegroundedsemseg_torch.sparse.types import MaskedShiftMap
 
 # Launches of each kernel: a wrapper adds one where it launches its kernel
 # on the card and nowhere else (the CPU path runs the plain version).
-launch_counts = {"sel_fwd": 0, "csum": 0}
+launch_counts = {"sel_fwd": 0, "csum": 0, "dw": 0}
 
 # csum keeps a (tile, chunk) f32 accumulator in shared memory; the chunk of
 # channels per block is sized to this budget (below the 227 KB a block may
 # use, so two blocks can share an SM).
 CSUM_SMEM_BUDGET = 96 * 1024
 
+# dw splits its rows over blocks; the split count aims at this many blocks
+# (a few waves of 2 blocks per SM on 132 SMs) with at least DW_MIN_ROWS rows
+# per split.
+DW_TARGET_BLOCKS = 1024
+DW_MIN_ROWS = 256
+_DW_BM, _DW_BN = 64, 128  # output tile of one dw block (csrc/dw.cu)
+
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-def _forward_only(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the Hopper conv kernels are forward only in this slice; their "
-            "backward (dX, dW) is ported with the train step in slice B — "
-            "run the forward under torch.no_grad() or torch.inference_mode()")
 
 
 def _check(t: torch.Tensor, name, dtype, shape=None, device=None):
@@ -104,7 +115,6 @@ def sel_fwd(wstart, anchors, mc, pall, n_cols, tile, win):
     """Selector forward; contract as ``sel_fwd_reference``. A CUDA input
     launches the Hopper kernel (``csrc/sel_fwd.cu``); a CPU input runs the
     plain version."""
-    _forward_only(pall)
     if pall.device.type == "cpu":
         return sel_fwd_reference(wstart, anchors, mc, pall, n_cols, tile, win)
     if pall.device.type != "cuda":
@@ -177,7 +187,6 @@ def csum(wstart, parent_g, pall, cap_out, tile, win, n_groups):
     """Windowed child sum; contract as ``csum_reference``. A CUDA input
     launches the Hopper kernel (``csrc/csum.cu``); a CPU input runs the
     plain version."""
-    _forward_only(pall)
     if pall.device.type == "cpu":
         return csum_reference(wstart, parent_g, pall, cap_out, tile, win,
                               n_groups)
@@ -204,6 +213,116 @@ def csum(wstart, parent_g, pall, cap_out, tile, win, n_groups):
         raise RuntimeError(f"csum kernel launch failed: CUDA error {rc}")
     launch_counts["csum"] += 1
     return out
+
+
+# ---- fused dW: the stride-1 k3 convs' anchored columns ------------------------
+
+
+def dw_fused_reference(inv_wstart, inv_anchors, t3b, g, tile, win):
+    """Plain version of the ``dw`` kernel: for column c and T3 row i of
+    tile t = i // tile, with o = inv_anchors[c, i] and
+    ws = inv_wstart[t * n_cols + c],
+
+        out[c] = sum_i T3[i]^T (x) (g[o] if ws <= o < ws + win else 0)
+
+    ``t3b`` (cap, 3C) bf16, ``g`` (cap, c_out) bf16, ``inv_anchors``
+    (n_cols, cap) int32 with guard cap. bf16 products summed in f32.
+    Returns (n_cols, 3C, c_out) f32."""
+    n_cols, cap = inv_anchors.shape
+    t = torch.arange(cap, device=g.device) // tile
+    t3f = t3b.to(torch.float32).t()
+    zero = torch.zeros((), device=g.device)
+    out = []
+    for c in range(n_cols):
+        o = inv_anchors[c].long()
+        ws = inv_wstart[t * n_cols + c].long()
+        hit = (o >= ws) & (o < ws + win) & (o < cap)
+        gc = g[torch.where(hit, o, torch.zeros_like(o))].to(torch.float32)
+        out.append(t3f @ torch.where(hit[:, None], gc, zero))
+    return torch.stack(out)
+
+
+def _dw_splits(cap: int, cw: int, n_total: int) -> tuple:
+    """(rows per split, split count) of a dw launch: enough splits to give
+    about DW_TARGET_BLOCKS blocks, each split at least DW_MIN_ROWS rows.
+    A function of the shapes alone, so the sum order is fixed."""
+    tiles = -(-cw // _DW_BM) * -(-n_total // _DW_BN)
+    n_split = max(1, min(-(-DW_TARGET_BLOCKS // tiles), cap // DW_MIN_ROWS))
+    rows = -(-cap // n_split)
+    return rows, -(-cap // rows)
+
+
+def dw_fused(inv_wstart, inv_anchors, t3b, g, tile, win):
+    """Fused dW of the anchored columns; contract as ``dw_fused_reference``.
+    A CUDA input launches the Hopper kernel (``csrc/dw.cu``); a CPU input
+    runs the plain version."""
+    if g.device.type == "cpu":
+        return dw_fused_reference(inv_wstart, inv_anchors, t3b, g, tile, win)
+    if g.device.type != "cuda":
+        raise ValueError(f"dw_fused: unsupported device {g.device}")
+    n_cols, cap = inv_anchors.shape
+    cw, c_out = t3b.shape[1], g.shape[1]
+    if c_out % 8:
+        raise ValueError(f"dw_fused: c_out {c_out} is not a multiple of 8")
+    if tile <= 0 or cap % tile or win > cap:
+        raise ValueError(f"dw_fused: cap {cap}, tile {tile}, win {win}")
+    dev = g.device
+    _check(t3b, "t3b", torch.bfloat16, (cap, cw), dev)
+    _check(g, "g", torch.bfloat16, (cap, c_out), dev)
+    _check(inv_anchors, "inv_anchors", torch.int32, (n_cols, cap), dev)
+    _check(inv_wstart, "inv_wstart", torch.int32, (cap // tile * n_cols,), dev)
+    rows, n_split = _dw_splits(cap, cw, n_cols * c_out)
+    part = torch.empty((n_split, cw, n_cols * c_out), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((n_cols, cw, c_out), dtype=torch.float32, device=dev)
+    fn = cuda_kernels.function("dw")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(inv_wstart.data_ptr(), inv_anchors.data_ptr(), t3b.data_ptr(),
+                g.data_ptr(), part.data_ptr(), out.data_ptr(), cap, cw, c_out,
+                n_cols, tile, win, rows, n_split, stream)
+    if rc != 0:
+        raise RuntimeError(f"dw kernel launch failed: CUDA error {rc}")
+    launch_counts["dw"] += 1
+    return out
+
+
+def _inv_from_anchors(anchors, ov_in, ov_out, ov_off, dwov_in, dwov_off):
+    """Rebuild the dW inverse tiling on the device (production builds ship
+    a 0-width ``inv_anchors``). The pre-routing anchors are the final ones
+    with the ov entries put back; the inverse is their per-column scatter
+    (injective per column over the complete pair set); the dwov positions
+    are guarded again, as the host's routing did. Guard indices (cap) land
+    in an extra column that is sliced off."""
+    n_cols, cap = anchors.shape
+    dev = anchors.device
+    a_full = torch.cat([anchors.long(),
+                        torch.full((n_cols, 1), cap, device=dev,
+                                   dtype=torch.long)], dim=1)
+    if ov_in.shape[0]:
+        ci = _entry_cols(ov_off, ov_in.shape[0])
+        a_full[ci, ov_out.long()] = ov_in.long()
+    o = torch.arange(cap + 1, dtype=torch.int32, device=dev).expand(n_cols, -1)
+    inv = torch.full((n_cols, cap + 1), cap, dtype=torch.int32, device=dev)
+    inv.scatter_(1, a_full, o)
+    if dwov_in.shape[0]:
+        cj = _entry_cols(dwov_off, dwov_in.shape[0])
+        inv[cj, dwov_in.long()] = cap
+    return inv[:, :cap].contiguous()
+
+
+def with_inverse_anchors(graph):
+    """``graph`` with every windowed MaskedShiftMap's ``inv_anchors``
+    rebuilt where the wire format left it 0-wide: once per map and batch,
+    for the 47 convs that share 5 maps."""
+    gmaps = dict(graph.gmaps or {})
+    for name, m in gmaps.items():
+        if (isinstance(m, MaskedShiftMap) and m.inv_wstart.numel()
+                and m.inv_anchors.shape[1] == 0):
+            gmaps[name] = m.replace(inv_anchors=_inv_from_anchors(
+                _abs_anchors(m.anchors), m.ov_in, m.ov_out, m.ov_off,
+                m.dwov_in, m.dwov_off))
+    return graph.replace(gmaps=gmaps)
 
 
 # ---- stride-1 k3 conv through the selector ----------------------------------
@@ -243,9 +362,77 @@ def _oh_fwd_impl(x, w, mp, mn, mc, anchors, wstart, ov_in, ov_out, ov_off,
     return acc + _ov_from_pall(pall, n_cols, ov_in, ov_out, ov_off, cap)
 
 
+def _oh_dw_impl(x, g32, m, inv_anchors, k_num):
+    """dW of a selector conv (reference :415-443): the center column's
+    contraction, the fused kernel for the 8 anchored columns, the dwov COO.
+    ``g32`` is the output gradient already masked by mc."""
+    c = x.shape[1]
+    cols = tuple(m.cols)
+    dw = [None] * k_num
+    # bf16 T3 and g for the center contraction too, with f32 products and
+    # sums, as the kernel does for the other 8 columns
+    t3b = _t3(x.to(torch.bfloat16), m.mp, m.mn, m.mc)[:-1]
+    gb = g32.to(torch.bfloat16)
+    _put_cols(dw, cols[0], c,
+              t3b.to(torch.float32).t() @ gb.to(torch.float32))
+    dwcols = dw_fused(m.inv_wstart, inv_anchors, t3b, gb, int(m.tile),
+                      int(m.win))
+    for gi, col in enumerate(cols[1:]):
+        _put_cols(dw, col, c, dwcols[gi])
+    for gi, dcol in _ov_dw_pieces(x, m.mp, m.mn, m.mc, g32, m.dwov_in,
+                                  m.dwov_out, m.dwov_off, len(cols) - 1):
+        _put_cols(dw, cols[gi + 1], c, dcol)
+    zero = g32.new_zeros((c, g32.shape[1]))
+    return torch.stack([zero if d is None else d for d in dw])
+
+
+class _OnehotWindowConv(torch.autograd.Function):
+    """The reference's ``_oh_core`` custom VJP (:446-519). Saves x and w
+    (not the projection table: 102 MB per conv at L0, c = 96); the backward
+    rebuilds T3."""
+
+    @staticmethod
+    def forward(ctx, x, w, msmap, anchors):
+        m = msmap
+        out = _oh_fwd_impl(x, w, m.mp, m.mn, m.mc, anchors, m.wstart,
+                           m.ov_in, m.ov_out, m.ov_off, tuple(m.cols),
+                           int(m.tile), int(m.win))
+        ctx.save_for_backward(x, w, anchors)
+        ctx.msmap = msmap
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, w, anchors = ctx.saved_tensors
+        m = ctx.msmap
+        g32 = g_out.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dX: the same pair structure with mirrored, transposed weights.
+            # sel_fwd's width is c_in: pad it to a multiple of 8, slice back
+            c_in = x.shape[1]
+            wt = _wt(w, m.mirror_perm)
+            ci_pad = (-c_in) % 8
+            if ci_pad:
+                wt = F.pad(wt, (0, ci_pad))
+            dx = _oh_fwd_impl(g32, wt, m.mp, m.mn, m.mc, anchors, m.wstart,
+                              m.ov_in, m.ov_out, m.ov_off, tuple(m.cols),
+                              int(m.tile), int(m.win))
+            dx = dx[:, :c_in].to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            inv = m.inv_anchors
+            if inv.shape[1] == 0:
+                inv = _inv_from_anchors(anchors, m.ov_in, m.ov_out, m.ov_off,
+                                        m.dwov_in, m.dwov_off)
+            gm = g32 * m.mc[:, None].to(torch.float32)
+            dw = _oh_dw_impl(x, gm, m, inv, w.shape[0]).to(w.dtype)
+        return dx, dw, None, None
+
+
 def onehot_window_conv(x, w, msmap, bias=None):
     """Apply a stride-1 k3 conv through a window-annotated MaskedShiftMap:
-    bf16 projection, selector kernel, f32 accumulation.
+    bf16 projection, selector kernel, f32 accumulation; differentiable in
+    x, w and bias.
 
     Returns None when the map has no window annotation (or its shapes do
     not divide); the caller then takes the f32 masked-shift gather."""
@@ -255,15 +442,12 @@ def onehot_window_conv(x, w, msmap, bias=None):
     cap = x.shape[0]
     if cap % tile or cap < win:
         return None
-    # 16-byte vector loads in the kernel take 8 bf16 channels at a time:
+    # 16-byte vector loads in the kernels take 8 bf16 channels at a time:
     # pad the output channels to a multiple of 8 and slice back
     c_out = w.shape[2]
     c_pad = (-c_out) % 8
-    wp = torch.nn.functional.pad(w, (0, c_pad)) if c_pad else w
-    out = _oh_fwd_impl(
-        x, wp, msmap.mp, msmap.mn, msmap.mc, _abs_anchors(msmap.anchors),
-        msmap.wstart, msmap.ov_in, msmap.ov_out, msmap.ov_off,
-        tuple(msmap.cols), tile, win).to(x.dtype)
+    wp = F.pad(w, (0, c_pad)) if c_pad else w
+    out = _OnehotWindowConv.apply(x, wp, msmap, _abs_anchors(msmap.anchors))
     if c_pad:
         out = out[:, :c_out]
     if bias is not None:
@@ -370,33 +554,98 @@ def _cs_window(csmap, cap_in):
     return tile, win, int(csmap.n_groups)
 
 
+class _ChildSumConv(torch.autograd.Function):
+    """The reference's ``_cs_core`` custom VJP (:767-810): windowed kernel
+    or scatter forward; gather-only backward through the down map's input
+    partition (every input row belongs to exactly one (parent, slot) pair),
+    exact over all pairs, the forward's overflow COO included."""
+
+    @staticmethod
+    def forward(ctx, x, w, csmap, parent, window):
+        tile, win, n_groups = window
+        cap_out = csmap.out_capacity
+        if tile:
+            out = _cs_fwd_impl(x, w, csmap.wstart, parent, csmap.kslot,
+                               csmap.ov_in, csmap.ov_out, csmap.ov_off,
+                               cap_out, tile, win, n_groups)
+        else:
+            out = _cs_scatter_impl(x, w, parent, csmap.kslot, cap_out)
+        ctx.save_for_backward(x, w, parent, csmap.kslot)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, w, parent, kslot = ctx.saved_tensors
+        g32 = g_out.to(torch.float32)
+        # guard rows carry parent = cap_out: clip so the (discarded, their
+        # slot matches nothing) gather stays in bounds
+        pclip = torch.clamp(parent, 0, g32.shape[0] - 1)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _parent_fwd_impl(g32, _wt(w), pclip, kslot).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _slot_dw(x.to(torch.float32), g32[pclip.long()], kslot,
+                        w.shape[0]).to(w.dtype)
+        return dx, dw, None, None, None
+
+
 def child_sum_conv(x, w, csmap, bias=None):
     """Apply a strided (down) conv through a ChildSumMap: the windowed
     child-sum kernel when the map carries a (tile, win) annotation, the
-    exact f32 scatter form otherwise."""
-    tile, win, n_groups = _cs_window(csmap, x.shape[0])
-    cap_out = csmap.out_capacity
-    parent = _abs_parent(csmap)
-    if tile:
-        out = _cs_fwd_impl(x, w, csmap.wstart, parent, csmap.kslot,
-                           csmap.ov_in, csmap.ov_out, csmap.ov_off, cap_out,
-                           tile, win, n_groups)
-    else:
-        out = _cs_scatter_impl(x, w, parent, csmap.kslot, cap_out)
-    out = out.to(x.dtype)
+    exact f32 scatter form otherwise; differentiable in x, w and bias."""
+    window = _cs_window(csmap, x.shape[0])
+    out = _ChildSumConv.apply(x, w, csmap, _abs_parent(csmap), window)
     if bias is not None:
         out = out + bias
     return out
+
+
+class _TransposeChildSumConv(torch.autograd.Function):
+    """The reference's ``_tcs_core`` custom VJP (:901-940): a gather
+    forward; dX through the child-sum direction (the ``csum`` kernel when
+    the companion map is windowed), dW as K masked contractions against
+    x gathered at the parents."""
+
+    @staticmethod
+    def forward(ctx, x, w, csmap, parent, window):
+        pclip = torch.clamp(parent, 0, x.shape[0] - 1)
+        out = _parent_fwd_impl(x, w, pclip, csmap.kslot)
+        ctx.save_for_backward(x, w, parent, pclip, csmap.kslot)
+        ctx.csmap, ctx.window = csmap, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, w, parent, pclip, kslot = ctx.saved_tensors
+        m = ctx.csmap
+        tile, win, n_groups = ctx.window
+        g32 = g_out.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = _wt(w)  # (K, c_out, c_in)
+            if tile:
+                dx = _cs_fwd_impl(g32, wt, m.wstart, parent, kslot, m.ov_in,
+                                  m.ov_out, m.ov_off, m.out_capacity, tile,
+                                  win, n_groups)
+            else:
+                dx = _cs_scatter_impl(g32, wt, parent, kslot, m.out_capacity)
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _slot_dw(x[pclip.long()].to(torch.float32), g32, kslot,
+                        w.shape[0]).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 def transpose_child_sum_conv(x, w, csmap, bias=None):
     """Apply a k2s2 transpose (up) conv through the companion DOWN map's
     ChildSumMap: out_fine[o] = x_coarse[parent[o]] @ W[kslot[o]]. The up
     map's offsets are the down map's negated in the same order, so the slot
-    order matches. x: (coarse cap, Cin); returns (in_capacity, Cout)."""
-    parent = _abs_parent(csmap)
-    pclip = torch.clamp(parent, 0, x.shape[0] - 1)
-    out = _parent_fwd_impl(x, w, pclip, csmap.kslot)
+    order matches. x: (coarse cap, Cin); returns (in_capacity, Cout).
+    The backward's dX runs the child-sum direction at the fine capacity,
+    so the window is checked there."""
+    window = _cs_window(csmap, int(csmap.in_capacity))
+    out = _TransposeChildSumConv.apply(x, w, csmap, _abs_parent(csmap),
+                                       window)
     if bias is not None:
         out = out + bias
     return out

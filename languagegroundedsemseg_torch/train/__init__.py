@@ -1,1 +1,1 @@
-"""Eval step (the serving entry point)."""
+"""Train and eval steps, optimizers and the train state."""

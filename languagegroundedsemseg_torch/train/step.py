@@ -1,21 +1,27 @@
-"""The eval step — the serving entry point — and the batch it consumes.
+"""The train and eval steps and the batch they consume.
 
 Counterpart of ``languagegroundedsemseg_tpu/train/step.py``: ``TrainBatch``
-with its wire decompaction (:38-53) and ``make_eval_step`` (:113-131). The
-train step comes with the backward kernels in a later slice.
+with its wire decompaction (:38-53), ``make_train_step`` (:56-110) and
+``make_eval_step`` (:113-131). Data parallelism (the reference's
+``axis_name``) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from languagegroundedsemseg_torch.device import resolve_device
+from languagegroundedsemseg_torch.ops.onehot_conv import with_inverse_anchors
 from languagegroundedsemseg_torch.sparse.types import ConvGraph
+from languagegroundedsemseg_torch.train.state import TrainState
+
+# objective(logits, features, batch, generator, row_mask) -> (loss, metrics)
+Objective = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
 @dataclass
@@ -58,6 +64,58 @@ class TrainBatch:
         if b.labels.dtype != torch.int32:
             b = b.replace(labels=b.labels.to(torch.int32))
         return b
+
+
+def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new generator on ``generator``'s device whose seed mixes the
+    generator's seed with ``data`` (the counterpart of
+    ``jax.random.fold_in``; the bits differ from JAX's)."""
+    seed = np.random.SeedSequence(
+        [generator.initial_seed(), int(data)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(int(seed))
+
+
+def make_train_step(model, optimizer, objective: Objective,
+                    representation_only: bool = False,
+                    device="cuda") -> Callable:
+    """Build ``step(state, batch, generator=None) -> (state, metrics)``.
+
+    Moves ``model`` to ``device``. Each call runs the train-mode forward
+    (BatchNorm over valid rows, running statistics updated), the objective
+    with the level-0 row mask, the backward, and ``optimizer``'s update
+    scaled by ``state.lr_scale``; then ``state.step += 1``. ``state`` is the
+    ``TrainState`` of this model and optimizer. The objective's generator is
+    ``generator`` folded with the step. Metrics (0-d tensors on the device):
+    the objective's, ``loss``, and ``grad_norm``, the global L2 norm of the
+    gradients before the update."""
+    dev = resolve_device(device)
+    model = model.to(dev)
+
+    def step(state: TrainState, batch: "TrainBatch",
+             generator: Optional[torch.Generator] = None):
+        batch = batch.to(dev).decompact()
+        # the selector convs' dW reads the inverse tiling: rebuild it once
+        # per map for this batch where the wire format left it out
+        batch = batch.replace(graph=with_inverse_anchors(batch.graph))
+        gen = None if generator is None else fold_in(generator, state.step)
+        model.train()
+        optimizer.zero_grad()
+        out_a, out_b = model(batch.feats, batch.graph,
+                             representation_only=representation_only)
+        row_mask = batch.graph.levels[0].mask()
+        loss, metrics = objective(out_a, out_b, batch, gen, row_mask)
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        grad_norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        optimizer.step(lr_scale=state.lr_scale)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["loss"] = loss.detach()
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+    return step
 
 
 def make_eval_step(model, representation_only: bool = False,

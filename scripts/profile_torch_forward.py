@@ -1,14 +1,17 @@
-"""Where the PyTorch port's eval forward spends its device time (one GPU).
+"""Where the PyTorch port's eval forward or train step spends its device
+time (one GPU).
 
-    python scripts/profile_torch_forward.py [--runs 3]
+    python scripts/profile_torch_forward.py [--runs 3] [--train]
 
 Builds chip_smoke.py's main-path batch (4 synthetic scenes x 180,000
-points, compact wire format), runs the Res16UNet34C (200 classes) eval
-forward with the bench's seeded weights under ``torch.profiler``, and
-prints one JSON line: the card's name and power limit, wall time per
-forward, the device busy share (kernel time / wall time), device time by
-category (the two hand-written kernels, GEMMs, gathers/scatters,
-elementwise) and the top kernels by device time. Needs a CUDA device.
+points, compact wire format) and runs, under ``torch.profiler``, the
+Res16UNet34C (200 classes) eval forward with the bench's seeded weights, or
+with ``--train`` chip_smoke.py's SGD train step (conditioned weights, CE
+with ignore label 255). Prints one JSON line: the card's name and power
+limit, wall time per run, the device busy share (kernel time / wall time),
+device time by category (the three hand-written kernels, GEMMs,
+gathers/scatters, elementwise) and the top kernels by device time. Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CATEGORIES = (
     ("sel_fwd", ("sel_fwd_kernel",)),
     ("csum", ("csum_kernel",)),
+    ("dw", ("dw_kernel", "dw_reduce_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "splitK")),
     ("gather_scatter", ("index", "gather", "scatter", "roll")),
     ("elementwise", ("elementwise", "vectorized", "reduce", "cat")),
@@ -46,6 +50,8 @@ def category(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of the forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_forward: no CUDA device", file=sys.stderr)
@@ -63,7 +69,13 @@ def main() -> int:
     builder = BatchBuilder(spec=res16unet_graph_spec(), ship_coords=False,
                            compact_feats=True)
     batch = builder.build(cs.main_path_scenes())
-    step = make_eval_step(cs.seeded_model("cuda"))
+    if args.train:
+        train_step, state = cs._train_setup(cs.scaled_model("cuda"))
+
+        def step(b):
+            train_step(state, b)
+    else:
+        step = make_eval_step(cs.seeded_model("cuda"))
     for _ in range(2):
         step(batch)
     torch.cuda.synchronize()
@@ -92,9 +104,10 @@ def main() -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
     print(json.dumps({
         "nvidia_smi": smi, "runs": args.runs,
+        "what": "train_step" if args.train else "eval_forward",
         "n_voxels": int(batch.graph.levels[0].valid.sum()),
-        "wall_ms_per_forward": wall * 1e3,
-        "device_ms_per_forward": device_ms,
+        "wall_ms_per_run": wall * 1e3,
+        "device_ms_per_run": device_ms,
         "device_busy_share": device_ms / (wall * 1e3) if wall else None,
         "device_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])),

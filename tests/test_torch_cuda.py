@@ -1,14 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Marked ``cuda``: without an NVIDIA GPU they skip (a CUDA kernel has no CPU
-mode). This file imports neither jax nor the JAX package, so it also runs on
+Marked ``cuda``: without a Hopper GPU (capability 9.0; the kernels are
+built for sm_90a) they skip (a CUDA kernel has no CPU mode). This file imports neither jax nor the JAX package, so it also runs on
 a GPU machine without them; tests/conftest.py imports jax, hence:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Inputs are the graphs of tests/test_torch_kernels.py built by the port's own
 builder; tolerance 1e-5 of max |ref| (same bf16 values summed in f32, only
-the order differs).
+the order differs). The autograd test compares a conv's gradients on the
+card with the CPU's plain path: both run bf16 projection GEMMs, whose bf16
+rounding of P may differ by one unit between the two backends, so it holds
+them to 1e-2 of max |ref|.
 """
 
 import numpy as np
@@ -21,11 +24,14 @@ from languagegroundedsemseg_torch.sparse.offsets import ConvKind
 from oracles import make_cloud
 
 RTOL = 1e-5
+CARD_VS_CPU_RTOL = 1e-2
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a Hopper GPU: the kernels are built for sm_90a")
     return torch.device("cuda")
 
 
@@ -47,7 +53,7 @@ def _rel(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_run", [96, 32, 8])
+@pytest.mark.parametrize("c_run", [96, 32, 8, 384])
 def test_sel_fwd_kernel_matches_plain_version(c_run):
     dev = _card()
     rng, g = _graph(4, 3000, (4096,), down=False)
@@ -90,3 +96,64 @@ def test_csum_kernel_matches_plain_version(n_groups, c_run):
     torch.cuda.synchronize()
     assert oc.launch_counts["csum"] == n0 + 1
     assert _rel(got, oc.csum_reference(*args)) <= RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw,c_out", [(9, 32), (288, 96), (1152, 256)])
+def test_dw_kernel_matches_plain_version(cw, c_out):
+    """3C from conv0's 9 (not a multiple of 8: the element-wise T3 loads)
+    to block5's 1152; 10% of the inverse anchors scrambled so the window
+    test decides."""
+    dev = _card()
+    rng, g = _graph(4, 3000, (4096,), down=False)
+    m = g.gmaps["k3"].to(dev)
+    assert m.tile > 0 and m.inv_anchors.shape[1] == 4096
+    inv = m.inv_anchors.clone()
+    pick = torch.from_numpy(rng.random(tuple(inv.shape)) < 0.1).to(dev)
+    inv[pick] = torch.randint(0, 4097, (int(pick.sum()),), device=dev,
+                              dtype=torch.int32)
+    t3b = torch.from_numpy(rng.normal(size=(4096, cw)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    gb = torch.from_numpy(rng.normal(size=(4096, c_out)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    args = [m.inv_wstart, inv, t3b, gb, m.tile, m.win]
+    n0 = oc.launch_counts["dw"]
+    got = oc.dw_fused(*args)
+    torch.cuda.synchronize()
+    assert oc.launch_counts["dw"] == n0 + 1
+    assert got.shape == (8, cw, c_out)
+    assert _rel(got, oc.dw_fused_reference(*args)) <= RTOL
+    # no atomics: a second launch sums in the same order, bit for bit
+    assert torch.equal(oc.dw_fused(*args), got)
+
+
+@pytest.mark.cuda
+def test_onehot_window_conv_autograd_on_card():
+    """One forward and backward of a selector conv on CUDA tensors: two
+    sel_fwd launches (forward, dX) and one dw launch, and the card's
+    output, dX and dW agree with the CPU's plain path."""
+    dev = _card()
+    rng, g = _graph(5, 3000, (4096,), down=False)
+    m = g.gmaps["k3"]
+    assert m.tile > 0
+    x = np.zeros((4096, 16), np.float32)
+    n = int(g.levels[0].num)
+    x[:n] = rng.normal(size=(n, 16))
+    w = (rng.normal(size=(27, 16, 20)) * 0.1).astype(np.float32)
+    ct = rng.normal(size=(4096, 20)).astype(np.float32)
+
+    def run(device):
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        wt = torch.from_numpy(w).to(device).requires_grad_(True)
+        out = oc.onehot_window_conv(xt, wt, m.to(device))
+        (out * torch.from_numpy(ct).to(device)).sum().backward()
+        return [t.detach().cpu() for t in (out, xt.grad, wt.grad)]
+
+    before = dict(oc.launch_counts)
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert oc.launch_counts["sel_fwd"] == before["sel_fwd"] + 2
+    assert oc.launch_counts["dw"] == before["dw"] + 1
+    want = run("cpu")
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= CARD_VS_CPU_RTOL
