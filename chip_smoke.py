@@ -4,7 +4,8 @@
 
 Builds the port's CUDA kernels and native graph builders from the sources in
 this checkout and holds each kernel against its plain PyTorch version at the
-shapes of the main path (the forward's and the backward's widths). Then it
+shapes of the main path (the forward's and the backward's widths), and the
+two one-hot ablation kernels at their microbenchmarks' full shapes. Then it
 drives Res16UNet34C (200 classes) on a 4-scene synthetic batch through the
 entry points a user calls: the eval forward (``make_eval_step``) and the SGD
 train step (``make_train_step``), each run with the launch counts set to 0
@@ -37,6 +38,11 @@ KERNEL_RTOL = 1e-5
 # dw against its plain version: the same bf16 products summed in f32 in
 # another order, over up to 589,824 rows
 DW_RTOL = 1e-4
+# the ablation kernels against their plain versions: onehot_gemm and the
+# no_sel / no_proj modes sum the same f32 products in another order; the
+# full mode rounds each column's product to bf16, which another sum order
+# can flip by one bf16 unit
+ABLATION_RTOL, VARIANTS_FULL_RTOL = 1e-5, 1e-2
 # card vs CPU logits on the small batch: both run bf16 projections; only sum
 # order and GEMM rounding differ
 PARITY_RTOL = 1e-2
@@ -126,7 +132,9 @@ def phase_build() -> None:
         raise RuntimeError("the native fused graph builder did not load")
     for name in cuda_kernels.KERNELS:
         cuda_kernels.function(name)  # load now, so no phase below builds
-    ptxas = {n: [l.strip() for l in log.splitlines() if "Used" in l or "spill" in l]
+    # each entry function's (mangled) name, then its registers and spills
+    ptxas = {n: [l.strip() for l in log.splitlines()
+                 if "entry function" in l or "Used" in l or "spill" in l]
              for n, log in cuda_kernels.build_log.items()}
     emit({"phase": "build", "seconds": seconds, "native_fused_builder": True,
           "nvcc_flags": " ".join(cuda_kernels.NVCC_FLAGS), "ptxas": ptxas})
@@ -407,11 +415,173 @@ def phase_kernels(graph, bw: float) -> dict:
             "peak_ops_per_s": BF16_TC_OPS_PER_S}
 
     for rec in results.values():
-        t_bytes = rec["bytes"] / bw
-        t_ops = rec["operations"] / rec["peak_ops_per_s"]
-        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        _bound(rec, bw)
         emit({"phase": "kernels", **rec})
+    return results
+
+
+def _bound(rec, bw: float) -> None:
+    """Add the least time the card could take for ``rec``'s work: the
+    larger of its bytes over the memory rate and its operations over the
+    peak rate of their type."""
+    t_bytes = rec["bytes"] / bw
+    t_ops = rec["operations"] / rec["peak_ops_per_s"]
+    rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def gemm_work(a, tile: int, win: int) -> tuple:
+    """(bytes, operations, in-window rows) of the single-column
+    gather-GEMM on these inputs: each distinct in-window t3 row read once
+    (f32), the anchors, starts and W, the f32 output; a multiply-add per
+    in-window row and (cw, c_out) element."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    n_rows, cw = a["t3"].shape
+    n, c_out = a["anchors"].shape[0], a["w"].shape[1]
+    hit, rows = oa._gemm_hits(a["wstart"], a["anchors"], n_rows, tile, win)
+    distinct = int(torch.unique(rows[hit]).numel())
+    hits = int(hit.sum())
+    nbytes = (distinct * cw * 4 + n * 4 + a["wstart"].numel() * 4
+              + cw * c_out * 4 + n * c_out * 4)
+    return nbytes, 2 * hits * cw * c_out, hits
+
+
+def variants_work(mode: str, a, tile: int, win: int, n_groups: int) -> tuple:
+    """(bytes, operations, peak rate, rows read) of one onehot_variants
+    mode on these inputs. Each distinct t3 row the mode reads is counted
+    once (bf16; no_proj reads only its first c_out channels), plus the
+    anchors where the mode reads them, the starts, W where it projects,
+    and the f32 output. Operations: a bf16 multiply-add per row read and
+    (cw, c_out) element (full, no_sel), an f32 add per row read and output
+    channel (no_proj); no_dma's function is the zero output alone."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    n_rows, cw = a["t3"].shape
+    n_cols, _, c_out = a["w"].shape
+    cap = a["anchors"].shape[1]
+    out_bytes = cap * c_out * 4
+    if mode == "no_dma":
+        return out_bytes, 0, F32_OPS_PER_S, 0
+    used, reads = [], 0
+    for col in range(n_cols):
+        ok, rows = oa.variants_rows(mode, col, a["wstart"], a["anchors"],
+                                    n_rows, tile, win, n_groups)
+        used.append(rows[ok])
+        reads += int(ok.sum())
+    distinct = int(torch.unique(torch.cat(used)).numel())
+    nbytes = out_bytes + a["wstart"].numel() * 4
+    if mode != "no_sel":
+        nbytes += a["anchors"].numel() * 4
+    if mode == "no_proj":
+        nbytes += distinct * c_out * 2
+        return nbytes, reads * c_out, F32_OPS_PER_S, reads
+    nbytes += distinct * cw * 2 + n_cols * cw * c_out * 2
+    return nbytes, 2 * reads * cw * c_out, BF16_TC_OPS_PER_S, reads
+
+
+def variants_library(a, tile: int, win: int, n_groups: int):
+    """The full mode through library calls: the in-window rows of every
+    column pre-gathered into a (n_cols, cap, cw) bf16 stack (zeros out of
+    window), then ``torch.bmm(stack, W).float().sum(0)`` — a batched bf16
+    GEMM whose bf16 output rounds each column's product, a cast and an f32
+    sum: three calls, not one."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    zero = torch.zeros((), dtype=a["t3"].dtype, device=a["t3"].device)
+    stack = []
+    for col in range(a["w"].shape[0]):
+        ok, rows = oa.variants_rows("full", col, a["wstart"], a["anchors"],
+                                    a["t3"].shape[0], tile, win, n_groups)
+        stack.append(torch.where(ok[:, None], a["t3"][rows], zero))
+    stack = torch.stack(stack)
+    return lambda: torch.bmm(stack, a["w"]).float().sum(0)
+
+
+def phase_ablation(bw: float) -> dict:
+    """The one-hot ablation kernels at their microbenchmarks' full shapes
+    and seeds (those of scripts/bench_onehot_gemm_torch.py and
+    scripts/bench_onehot_variants_torch.py): one onehot_gemm launch and one
+    onehot_variants launch per mode, with the ablation launch counts set to
+    0 just before and read just after; then each output held against its
+    plain version and the kernel, plain and library calls timed."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    gs, vs = oa.GEMM_SHAPES, oa.VARIANTS_SHAPES
+    g = oa.gemm_inputs(**gs, seed=0)
+    gargs = [g["wstart"], g["anchors"], g["t3"], g["w"], gs["b"], gs["w"]]
+    v = oa.variants_inputs(**vs, seed=0)
+    vgeo = (vs["tile"], vs["win"], vs["n_groups"])
+    vargs = [v["wstart"], v["anchors"], v["t3"], v["w"], *vgeo]
+    torch.cuda.synchronize()
+    oa.reset_launch_counts()
+    outs = {"onehot_gemm": oa.onehot_gemm(*gargs)}
+    for mode in oa.MODES:
+        outs[mode] = oa.onehot_variants(mode, *vargs)
+    torch.cuda.synchronize()
+    launches = dict(oa.launch_counts)
+    want = {"onehot_gemm": 1, "onehot_variants": len(oa.MODES)}
+    if launches != want:
+        raise AssertionError(f"ablation launches {launches}, expected {want}")
+
+    results = {}
+    err, scale = _hold("onehot_gemm", outs["onehot_gemm"],
+                       oa.onehot_gemm_reference(*gargs), ABLATION_RTOL)
+    nbytes, ops, hits = gemm_work(g, gs["b"], gs["w"])
+    a_long = g["anchors"].long()
+    results["onehot_gemm"] = {
+        "name": "onehot_gemm", "n": gs["n"], "tile": gs["b"],
+        "win": gs["w"], "cw": gs["cw"], "c_out": gs["c_out"],
+        "in_window_rows": hits,
+        "max_abs_err": err, "max_abs_ref": scale,
+        "ms": cuda_ms(lambda: oa.onehot_gemm(*gargs), TIMED_KERNEL_RUNS),
+        "plain_ms": cuda_ms(lambda: oa.onehot_gemm_reference(*gargs),
+                            TIMED_KERNEL_RUNS),
+        "library_ms": cuda_ms(lambda: g["t3"].index_select(0, a_long) @ g["w"],
+                              TIMED_KERNEL_RUNS),
+        "library_call": ("t3.index_select(0, anchors) @ W (f32, TF32 off): "
+                         "two calls, no bf16 rounding of t3 and no window "
+                         "test (every anchor of the script is in window)"),
+        "bytes": nbytes, "operations": ops, "peak_ops_per_s": F32_OPS_PER_S}
+    del outs["onehot_gemm"], g, gargs, a_long
+
+    library = variants_library(v, *vgeo)
+    for mode in oa.MODES:
+        got = outs.pop(mode)
+        if mode == "no_dma":
+            if bool(got.any()):
+                raise AssertionError("onehot_variants no_dma: non-zero output")
+            err, scale = 0.0, 0.0
+        else:
+            rtol = VARIANTS_FULL_RTOL if mode == "full" else ABLATION_RTOL
+            err, scale = _hold(f"onehot_variants {mode}", got,
+                               oa.onehot_variants_reference(mode, *vargs),
+                               rtol)
+        nbytes, ops, peak, reads = variants_work(mode, v, *vgeo)
+        results[("onehot_variants", mode)] = {
+            "name": "onehot_variants", "mode": mode, **vs, "rows_read": reads,
+            "max_abs_err": err, "max_abs_ref": scale,
+            "ms": cuda_ms(lambda: oa.onehot_variants(mode, *vargs),
+                          TIMED_KERNEL_RUNS),
+            "plain_ms": cuda_ms(
+                lambda: oa.onehot_variants_reference(mode, *vargs),
+                TIMED_KERNEL_RUNS),
+            "library_ms": (cuda_ms(library, TIMED_KERNEL_RUNS)
+                           if mode == "full" else None),
+            "library_call": ("torch.bmm(stack, W).float().sum(0) on a "
+                             "pre-gathered (9, cap, cw) bf16 stack: three "
+                             "calls, the gather not timed"
+                             if mode == "full" else None),
+            "bytes": nbytes, "operations": ops, "peak_ops_per_s": peak}
+    del library, v, vargs
+    torch.cuda.empty_cache()
+    for rec in results.values():
+        _bound(rec, bw)
+        emit({"phase": "ablation", **rec})
+    emit({"phase": "ablation", "launches": launches,
+          "variants_ms_by_mode": {m: results[("onehot_variants", m)]["ms"]
+                                  for m in oa.MODES}})
+    results["launches"] = launches
     return results
 
 
@@ -419,6 +589,7 @@ def phase_main_path(builder, scenes, batch, cold_build_s, model) -> dict:
     """The eval forward on the 4-scene batch: launch accounting, output
     checks, forward time. ``batch`` is the first (cold) build of
     ``scenes``, already on the card."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
     from languagegroundedsemseg_torch.train.step import make_eval_step
 
@@ -435,11 +606,16 @@ def phase_main_path(builder, scenes, batch, cold_build_s, model) -> dict:
     step(batch)  # warm-up
     torch.cuda.synchronize()
     oc.reset_launch_counts()
+    oa.reset_launch_counts()
     logits, _ = step(batch)
     torch.cuda.synchronize()
     launches = dict(oc.launch_counts)
+    ablation_launches = dict(oa.launch_counts)
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if any(ablation_launches.values()):
+        raise AssertionError(
+            f"ablation kernels on the forward: {ablation_launches}")
     if launches["sel_fwd"] == 0 or launches["csum"] == 0:
         raise AssertionError(f"a kernel of the main path never ran: {launches}")
     if logits.shape != (graph.levels[0].capacity, 200):
@@ -465,7 +641,8 @@ def phase_main_path(builder, scenes, batch, cold_build_s, model) -> dict:
            "fwd_ms": fwd_s * 1e3, "fwd_ms_runs": [t * 1e3 for t in times],
            "voxels_per_s": n_voxels / fwd_s,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "launches": launches, "expected_launches": want}
+           "launches": launches, "expected_launches": want,
+           "ablation_launches": ablation_launches}
     emit(rec)
     return rec
 
@@ -588,6 +765,7 @@ def phase_train_path(batch) -> dict:
     warm-up, one step with launch accounting, TIMED_TRAIN_STEPS timed
     steps. Loss and grad norm finite on every step, BN statistics moved,
     and the last step's loss below the first's (the gradient's sign)."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
 
     model = scaled_model("cuda")
@@ -609,10 +787,15 @@ def phase_train_path(batch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     run()  # warm-up
     oc.reset_launch_counts()
+    oa.reset_launch_counts()
     run()
     launches = dict(oc.launch_counts)
+    ablation_launches = dict(oa.launch_counts)
     if launches != want:
         raise AssertionError(f"train-step launches {launches}, expected {want}")
+    if any(ablation_launches.values()):
+        raise AssertionError(
+            f"ablation kernels on the train step: {ablation_launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the train step never ran: {launches}")
     for _ in range(TIMED_TRAIN_STEPS):
@@ -628,7 +811,7 @@ def phase_train_path(batch) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "losses": losses, "grad_norms": norms, "steps": state.step,
            "bn_stats_moved": moved, "launches": launches,
-           "expected_launches": want}
+           "expected_launches": want, "ablation_launches": ablation_launches}
     emit(rec)
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
@@ -718,6 +901,12 @@ _REPLACES = {
     "csum": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:618", 32),
     "dw": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:135", 288),
 }
+# the ablation kernels' rows: onehot_variants at its full mode
+_ABLATION_REPLACES = {
+    "onehot_gemm": ("scripts/bench_onehot_pallas.py:31", "onehot_gemm"),
+    "onehot_variants": ("scripts/bench_onehot_variants.py:35",
+                        ("onehot_variants", "full")),
+}
 
 
 def main() -> int:
@@ -744,6 +933,7 @@ def main() -> int:
     cold_build_s = time.perf_counter() - t0
     batch = host.to("cuda")
     kernels = phase_kernels(batch.graph, bw)
+    ablation = phase_ablation(bw)
 
     model = seeded_model("cuda")
     main = phase_main_path(builder, scenes, batch, cold_build_s, model)
@@ -767,6 +957,22 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "library_call": rec.get("library_call")})
+    # the ablation kernels: launched by their microbenchmarks, never by the
+    # forward or the train step (both read 0 above)
+    for name, (replaces, key) in _ABLATION_REPLACES.items():
+        rec = ablation[key]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"languagegroundedsemseg_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": train["ablation_launches"][name],
+            "launches_per_forward": main["ablation_launches"][name],
+            "launches_per_ablation": ablation["launches"][name],
+            "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+            "library_call": rec["library_call"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

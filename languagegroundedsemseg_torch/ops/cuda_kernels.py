@@ -33,6 +33,10 @@ KERNELS = {
     "sel_fwd": ("sel_fwd.cu", "lgs_sel_fwd", [_vp] * 5 + [_i] * 5 + [_vp]),
     "csum": ("csum.cu", "lgs_csum", [_vp] * 4 + [_i] * 8 + [_vp]),
     "dw": ("dw.cu", "lgs_dw", [_vp] * 6 + [_i] * 8 + [_vp]),
+    "onehot_gemm": ("onehot_gemm.cu", "lgs_onehot_gemm",
+                    [_vp] * 5 + [_i] * 6 + [_vp]),
+    "onehot_variants": ("onehot_variants.cu", "lgs_onehot_variants",
+                        [_vp] * 5 + [_i] * 9 + [_vp]),
 }
 
 _lock = threading.Lock()

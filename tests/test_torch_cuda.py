@@ -8,7 +8,10 @@ a GPU machine without them; tests/conftest.py imports jax, hence:
 
 Inputs are the graphs of tests/test_torch_kernels.py built by the port's own
 builder; tolerance 1e-5 of max |ref| (same bf16 values summed in f32, only
-the order differs). The autograd test compares a conv's gradients on the
+the order differs). The one-hot ablation kernels take their microbenchmarks'
+seeded inputs at small and odd sizes, with the same 1e-5 except the
+variants kernel's full mode, which rounds each column's product to bf16
+(1e-2). The autograd test compares a conv's gradients on the
 card with the CPU's plain path: both run bf16 projection GEMMs, whose bf16
 rounding of P may differ by one unit between the two backends, so it holds
 them to 1e-2 of max |ref|.
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from languagegroundedsemseg_torch.ops import onehot_ablation as oa
 from languagegroundedsemseg_torch.ops import onehot_conv as oc
 from languagegroundedsemseg_torch.sparse import graph_host as gh
 from languagegroundedsemseg_torch.sparse.offsets import ConvKind
@@ -25,6 +29,7 @@ from oracles import make_cloud
 
 RTOL = 1e-5
 CARD_VS_CPU_RTOL = 1e-2
+VARIANTS_FULL_RTOL = 1e-2
 
 
 def _card():
@@ -125,6 +130,64 @@ def test_dw_kernel_matches_plain_version(cw, c_out):
     assert _rel(got, oc.dw_fused_reference(*args)) <= RTOL
     # no atomics: a second launch sums in the same order, bit for bit
     assert torch.equal(oc.dw_fused(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tile,win,cw,c_out", [
+    (4096, 256, 512, 384, 96), (1000, 40, 200, 132, 32),
+    (2048, 512, 1024, 64, 16)])
+def test_onehot_gemm_kernel_matches_plain_version(n, tile, win, cw, c_out):
+    """Row counts that are not a multiple of the block's 64 rows, a cw that
+    leaves a ragged K chunk; 10% of the anchors moved anywhere (negative
+    and past the table included), so the window test decides."""
+    dev = _card()
+    a = oa.gemm_inputs(n, tile, win, cw, c_out, 3 * win // 8, seed=n,
+                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    pick = torch.rand(n, generator=gen, device=dev) < 0.1
+    a["anchors"][pick] = torch.randint(-5, n + 5, (int(pick.sum()),),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)
+    args = [a["wstart"], a["anchors"], a["t3"], a["w"], tile, win]
+    n0 = oa.launch_counts["onehot_gemm"]
+    got = oa.onehot_gemm(*args)
+    torch.cuda.synchronize()
+    assert oa.launch_counts["onehot_gemm"] == n0 + 1
+    assert got.shape == (n, c_out)
+    want = oa.onehot_gemm_reference(*args)
+    assert _rel(got, want) <= RTOL
+    # out-of-window rows are exact zeros
+    hit, _ = oa._gemm_hits(a["wstart"], a["anchors"], n, tile, win)
+    assert not bool(hit.all())
+    assert bool((got[~hit] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", oa.MODES)
+@pytest.mark.parametrize("cap,tile,win,cw,c_out", [
+    (2048, 256, 384, 128, 32), (1000, 200, 320, 136, 96),
+    (3072, 1024, 1536, 384, 96)])
+def test_onehot_variants_kernel_matches_plain_version(mode, cap, tile, win,
+                                                      cw, c_out):
+    """All four modes; a cap that is not a multiple of the block's 128 rows
+    and a cw that leaves a ragged 64-channel chunk. full rounds each
+    column's product to bf16, which a different sum order can flip by one
+    unit: 1e-2 of max |ref| (trouble spot of the contract); the other
+    modes sum the same values in f32: 1e-5; no_dma is exactly zero."""
+    dev = _card()
+    a = oa.variants_inputs(cap, tile, win, 3, cw, c_out, seed=cap,
+                           device=dev)
+    args = [a["wstart"], a["anchors"], a["t3"], a["w"], tile, win, 3]
+    n0 = oa.launch_counts["onehot_variants"]
+    got = oa.onehot_variants(mode, *args)
+    torch.cuda.synchronize()
+    assert oa.launch_counts["onehot_variants"] == n0 + 1
+    assert got.shape == (cap, c_out)
+    if mode == "no_dma":
+        assert bool((got == 0).all())
+        return
+    want = oa.onehot_variants_reference(mode, *args)
+    assert _rel(got, want) <= (VARIANTS_FULL_RTOL if mode == "full" else RTOL)
 
 
 @pytest.mark.cuda

@@ -174,15 +174,19 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, import without jax or
-    the JAX package. Checked in a fresh interpreter: this test process
-    already holds jax (tests/conftest.py)."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    import without jax or the JAX package. Checked in a fresh interpreter:
+    this test process already holds jax (tests/conftest.py)."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import languagegroundedsemseg_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "for s in ('bench_onehot_gemm_torch', 'bench_onehot_variants_torch',\n"
+        "          'profile_torch_forward'):\n"
+        "    spec = importlib.util.spec_from_file_location(s, f'scripts/{s}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'languagegroundedsemseg_tpu'))\n"
         "assert not bad, bad\n"
