@@ -56,6 +56,9 @@ F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM
 BF16_TC_OPS_PER_S = 989e12  # bf16 dense tensor cores, H100 SXM
 
 SCENES, POINTS = 4, 180_000          # the bench.py batch
+# dw in phase kernels: (3C, c_out, k3 map) of block8's convs and conv0 at
+# L0, and of block1's four convs, which run on the L1 map
+DW_SHAPES = ((288, 96, "l0.k3"), (9, 32, "l0.k3"), (96, 32, "l1.k3"))
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
@@ -165,6 +168,14 @@ def seeded_model(device, seed: int = 0):
     return model
 
 
+def ms_windowed(gm) -> bool:
+    """A k3 map whose window annotation the kernels can use: its convs run
+    sel_fwd (and, in a train step, dw)."""
+    cap = gm.out_capacity
+    return bool(gm.tile > 0 and gm.wstart.numel() and gm.inv_wstart.numel()
+                and cap % gm.tile == 0 and cap >= gm.win)
+
+
 def expected_launches(model, graph, train: bool = False) -> dict:
     """Launches the routing must make in one forward (or, with ``train``,
     one train step): per k3 conv whose map carries a usable window
@@ -185,9 +196,7 @@ def expected_launches(model, graph, train: bool = False) -> dict:
             continue
         gm = graph.gmaps.get(mod.map_name)
         if isinstance(gm, MaskedShiftMap):
-            cap = gm.out_capacity
-            if (gm.tile > 0 and gm.wstart.numel() and gm.inv_wstart.numel()
-                    and cap % gm.tile == 0 and cap >= gm.win):
+            if ms_windowed(gm):
                 want["sel_fwd"] += 1
                 if train:
                     want["dw"] += 1
@@ -279,16 +288,17 @@ def csum_work(a, n_summed: int) -> tuple:
     return nbytes, n_summed * c_run
 
 
-def dw_inputs(graph, cw: int, c_out: int, gen):
-    """The L0 k3 map's inverse tiling, rebuilt from the production wire
-    format as the train step does, and random bf16 T3 and g."""
+def dw_inputs(graph, cw: int, c_out: int, gen, map_name: str = "l0.k3"):
+    """A k3 map's inverse tiling (the L0 map's by default), rebuilt from
+    the production wire format as the train step does, and random bf16 T3
+    and g."""
     from languagegroundedsemseg_torch.ops.msconv import _abs_anchors
     from languagegroundedsemseg_torch.ops.onehot_conv import _inv_from_anchors
 
-    m = graph.gmaps["l0.k3"]
+    m = graph.gmaps[map_name]
     if m.tile <= 0 or m.inv_anchors.shape[1]:
-        raise RuntimeError("the L0 k3 map of the main-path batch has no "
-                           "window, or ships its inverse anchors")
+        raise RuntimeError(f"the {map_name} map of the main-path batch has "
+                           "no window, or ships its inverse anchors")
     inv = _inv_from_anchors(_abs_anchors(m.anchors), m.ov_in, m.ov_out,
                             m.ov_off, m.dwov_in, m.dwov_off)
     cap = inv.shape[1]
@@ -328,6 +338,44 @@ def dw_work(a, hits: int) -> tuple:
     return nbytes, 2 * hits * cw * c_out
 
 
+def dw_record(graph, cw: int, c_out: int, gen, map_name: str) -> dict:
+    """dw against its plain version at (3C, c_out) on a k3 map of the
+    main-path batch, timed beside the plain version and the library
+    product, with its launch geometry, the blocks an SM holds and what
+    ptxas reported (registers a thread, static shared memory, spills)."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    a = dw_inputs(graph, cw, c_out, gen, map_name)
+    args = [a[k] for k in ("inv_wstart", "inv_anchors", "t3b", "g", "tile",
+                           "win")]
+    err, scale = _hold(f"dw {cw}x{c_out} at {map_name}", oc.dw_fused(*args),
+                       oc.dw_fused_reference(*args), DW_RTOL)
+    g_all, hits = dw_gathered(a)
+    t3t = a["t3b"].t()
+    nbytes, ops = dw_work(a, hits)
+    n_cols, cap = a["inv_anchors"].shape
+    cfg = oc.dw_config()
+    return {
+        "name": "dw", "map": map_name, "cw": cw, "c_out": c_out, "cap": cap,
+        "tile": a["tile"], "win": a["win"], "inverse_pairs": hits,
+        **oc.dw_geometry(cap, cw, c_out, n_cols),
+        "stages": cfg["stages"], "blocks_per_sm": cfg["blocks_per_sm"],
+        "dynamic_smem_bytes": cfg["dynamic_smem_bytes"],
+        "ptxas": cuda_kernels.ptxas_usage("dw", "dw_kernel"),
+        "max_abs_err": err, "max_abs_ref": scale,
+        "ms": cuda_ms(lambda: oc.dw_fused(*args), TIMED_KERNEL_RUNS),
+        "plain_ms": cuda_ms(lambda: oc.dw_fused_reference(*args),
+                            TIMED_KERNEL_RUNS),
+        "library_ms": cuda_ms(lambda: torch.matmul(t3t, g_all),
+                              TIMED_KERNEL_RUNS),
+        "library_call": ("torch.matmul(t3b.t(), G) on a pre-gathered bf16 G "
+                         "(cap, 8*c_out): the product alone, without the "
+                         "gather, bf16 output"),
+        "bytes": nbytes, "operations": ops,
+        "peak_ops_per_s": BF16_TC_OPS_PER_S}
+
+
 def _hold(name, got, ref, rtol):
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
@@ -341,7 +389,7 @@ def phase_kernels(graph, bw: float) -> dict:
     """Each kernel against its plain version on the main-path batch's maps,
     at the widths the main path gives it: sel_fwd at 96 / 32 (forward) and
     384 (block5's dX); csum at 32 / 96 (forward) and 256 (up-conv dX); dw at
-    (3C, c_out) = (288, 96) (block8) and (9, 32) (conv0)."""
+    DW_SHAPES."""
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -387,32 +435,8 @@ def phase_kernels(graph, bw: float) -> dict:
             "bytes": nbytes, "operations": ops,
             "peak_ops_per_s": F32_OPS_PER_S}
 
-    for cw, c_out in ((288, 96), (9, 32)):
-        a = dw_inputs(graph, cw, c_out, gen)
-        args = [a[k] for k in ("inv_wstart", "inv_anchors", "t3b", "g", "tile",
-                               "win")]
-        err, scale = _hold(f"dw {cw}x{c_out}", oc.dw_fused(*args),
-                           oc.dw_fused_reference(*args), DW_RTOL)
-        g_all, hits = dw_gathered(a)
-        t3t = a["t3b"].t()
-        nbytes, ops = dw_work(a, hits)
-        results[("dw", cw)] = {
-            "name": "dw", "cw": cw, "c_out": c_out,
-            "cap": a["inv_anchors"].shape[1], "tile": a["tile"],
-            "win": a["win"], "inverse_pairs": hits,
-            "rows_per_split_and_splits": list(oc._dw_splits(
-                a["inv_anchors"].shape[1], cw, 8 * c_out)),
-            "max_abs_err": err, "max_abs_ref": scale,
-            "ms": cuda_ms(lambda: oc.dw_fused(*args), TIMED_KERNEL_RUNS),
-            "plain_ms": cuda_ms(lambda: oc.dw_fused_reference(*args),
-                                TIMED_KERNEL_RUNS),
-            "library_ms": cuda_ms(lambda: torch.matmul(t3t, g_all),
-                                  TIMED_KERNEL_RUNS),
-            "library_call": ("torch.matmul(t3b.t(), G) on a pre-gathered "
-                             "bf16 G (cap, 8*c_out): the product alone, "
-                             "without the gather, bf16 output"),
-            "bytes": nbytes, "operations": ops,
-            "peak_ops_per_s": BF16_TC_OPS_PER_S}
+    for cw, c_out, map_name in DW_SHAPES:
+        results[("dw", cw)] = dw_record(graph, cw, c_out, gen, map_name)
 
     for rec in results.values():
         _bound(rec, bw)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -88,6 +89,9 @@ def _build_locked(names) -> None:
         out, _ = proc.communicate()
         build_log[name] = out
         if proc.returncode == 0:
+            with open(f"{tmp}.log", "w") as f:
+                f.write(out)
+            os.replace(f"{tmp}.log", f"{so}.log")
             os.replace(tmp, so)
         else:
             failed.append(f"{name}:\n{out}")
@@ -97,21 +101,53 @@ def _build_locked(names) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def function(name: str):
-    """The C entry point of kernel ``name``, built and loaded on first
-    use, with its argtypes declared (every pointer and the stream as
-    ``c_void_p``, so ctypes never cuts a 64-bit address)."""
-    fn = _funcs.get(name)
+def function(name: str, symbol: str = None, argtypes=None):
+    """The C entry point of kernel ``name`` (or another exported
+    ``symbol`` of its library, taking ``argtypes``), built and loaded on
+    first use, with its argtypes declared (every pointer and the stream as
+    ``c_void_p``, so ctypes never cuts a 64-bit address). Returns an int
+    CUDA error code."""
+    _, sym, types = KERNELS[name]
+    if symbol is not None:
+        sym, types = symbol, argtypes
+    fn = _funcs.get(sym)
     if fn is not None:
         return fn
     with _lock:
-        fn = _funcs.get(name)
+        fn = _funcs.get(sym)
         if fn is None:
             _build_locked([name])
             lib = ctypes.CDLL(_paths(name)[1])
-            _, sym, argtypes = KERNELS[name]
             fn = getattr(lib, sym)
-            fn.argtypes = argtypes
+            fn.argtypes = types
             fn.restype = ctypes.c_int
-            _funcs[name] = fn
+            _funcs[sym] = fn
     return fn
+
+
+def ptxas_usage(name: str, entry: str) -> dict:
+    """Registers a thread, static shared memory and spill bytes that ptxas
+    reported for the kernel whose (mangled) entry name contains ``entry``,
+    from the build of ``name`` that made its library (this process's, or
+    the log kept beside the library); empty when there is none."""
+    log = build_log.get(name)
+    if log is None:
+        try:
+            with open(_paths(name)[1] + ".log") as f:
+                log = f.read()
+        except OSError:
+            log = ""
+    usage, inside = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = entry in line
+        elif inside and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            usage.update({f"spill_{kind}_bytes": int(n) for n, kind in nums})
+        elif inside and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
+            usage["registers"] = int(regs.group(1)) if regs else None
+            usage["static_smem_bytes"] = int(smem.group(1)) if smem else 0
+            inside = False
+    return usage

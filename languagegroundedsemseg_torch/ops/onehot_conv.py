@@ -32,6 +32,9 @@ counterpart here.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -60,12 +63,14 @@ launch_counts = {"sel_fwd": 0, "csum": 0, "dw": 0}
 # use, so two blocks can share an SM).
 CSUM_SMEM_BUDGET = 96 * 1024
 
-# dw splits its rows over blocks; the split count aims at this many blocks
-# (a few waves of 2 blocks per SM on 132 SMs) with at least DW_MIN_ROWS rows
-# per split.
-DW_TARGET_BLOCKS = 1024
-DW_MIN_ROWS = 256
-_DW_BM, _DW_BN = 64, 128  # output tile of one dw block (csrc/dw.cu)
+# dw's launch geometry (csrc/dw.cu, checked against the kernel's own by
+# ``dw_config``): a block owns a (_DW_BM rows of 3C) x (_DW_BN columns of
+# n_cols * c_out) output tile and walks one split of the rows _DW_BK at a
+# time. DW_RESIDENT_BLOCKS blocks run at once on an H100 SXM (132 SMs x 2
+# blocks); a split is at least DW_MIN_CHUNKS chunks where cap allows.
+_DW_BM, _DW_BN, _DW_BK = 96, 128, 64
+DW_RESIDENT_BLOCKS = 132 * 2
+DW_MIN_CHUNKS = 8
 
 
 def reset_launch_counts() -> None:
@@ -242,14 +247,59 @@ def dw_fused_reference(inv_wstart, inv_anchors, t3b, g, tile, win):
     return torch.stack(out)
 
 
+@functools.lru_cache(maxsize=None)
 def _dw_splits(cap: int, cw: int, n_total: int) -> tuple:
-    """(rows per split, split count) of a dw launch: enough splits to give
-    about DW_TARGET_BLOCKS blocks, each split at least DW_MIN_ROWS rows.
-    A function of the shapes alone, so the sum order is fixed."""
+    """(rows per split, split count) of a dw launch. A split is a whole
+    number of _DW_BK-row chunks. The count minimises waves x rows per
+    split, the time of an SM when every resident block walks one split,
+    and takes the fewest splits among equals (less for the second pass to
+    add). A function of the shapes alone, so the sum order is fixed."""
     tiles = -(-cw // _DW_BM) * -(-n_total // _DW_BN)
-    n_split = max(1, min(-(-DW_TARGET_BLOCKS // tiles), cap // DW_MIN_ROWS))
-    rows = -(-cap // n_split)
-    return rows, -(-cap // rows)
+    chunks = -(-cap // _DW_BK)
+    best = None
+    for want in range(1, max(1, chunks // DW_MIN_CHUNKS) + 1):
+        rows = -(-chunks // want) * _DW_BK
+        n_split = -(-cap // rows)
+        cost = -(-tiles * n_split // DW_RESIDENT_BLOCKS) * rows
+        if best is None or cost < best[0]:
+            best = (cost, rows, n_split)
+    return best[1], best[2]
+
+
+def dw_geometry(cap: int, cw: int, c_out: int, n_cols: int) -> dict:
+    """The launch of ``dw_fused`` at these shapes: 3C as the kernel sees
+    it (padded to a multiple of 8), rows per split, split count and grid."""
+    cw_k = cw + (-cw) % 8
+    rows, n_split = _dw_splits(cap, cw_k, n_cols * c_out)
+    grid = (-(-cw_k // _DW_BM), -(-(n_cols * c_out) // _DW_BN), n_split)
+    return {"cw_kernel": cw_k, "rows_per_split": rows, "splits": n_split,
+            "grid": list(grid), "blocks": grid[0] * grid[1] * grid[2]}
+
+
+def dw_config() -> dict:
+    """The geometry compiled into csrc/dw.cu and the blocks an SM holds,
+    from the card's runtime; raises if the tile differs from this module's
+    copy. Builds and loads the kernel; needs a CUDA device."""
+    cfg = (ctypes.c_int * 7)()
+    rc = cuda_kernels.function("dw", "lgs_dw_config",
+                               [ctypes.c_void_p])(ctypes.addressof(cfg))
+    if rc != 0:
+        raise RuntimeError(f"dw occupancy query failed: CUDA error {rc}")
+    keys = ("bm", "bn", "bk", "stages", "threads", "dynamic_smem_bytes",
+            "blocks_per_sm")
+    out = dict(zip(keys, cfg))
+    if (out["bm"], out["bn"], out["bk"]) != (_DW_BM, _DW_BN, _DW_BK):
+        raise RuntimeError(f"csrc/dw.cu tiles {out} differ from "
+                           f"{(_DW_BM, _DW_BN, _DW_BK)}")
+    return out
+
+
+def _dw_pad_cols(t3b):
+    """T3 with its columns zero-padded to a multiple of 8 (conv0: 9 -> 16):
+    the kernel copies 8 bf16 at a time. The padded columns add zero rows to
+    dW, which the wrapper slices off."""
+    pad = (-t3b.shape[1]) % 8
+    return F.pad(t3b, (0, pad)) if pad else t3b
 
 
 def dw_fused(inv_wstart, inv_anchors, t3b, g, tile, win):
@@ -258,6 +308,28 @@ def dw_fused(inv_wstart, inv_anchors, t3b, g, tile, win):
     runs the plain version."""
     if g.device.type == "cpu":
         return dw_fused_reference(inv_wstart, inv_anchors, t3b, g, tile, win)
+    out = _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win, None)
+    launch_counts["dw"] += 1
+    return out
+
+
+# dw's ablation modes (csrc/dw.cu): the kernel, G rows read contiguously
+# (no gather), the ring filled with no product, the product with nothing
+# copied. Only "full" computes dW.
+DW_ABLATION_MODES = ("full", "no_sel", "no_mma", "no_load")
+
+
+def dw_ablation(inv_wstart, inv_anchors, t3b, g, tile, win, mode: str):
+    """``dw_fused``'s launch in one of DW_ABLATION_MODES, for timing the
+    kernel's load side apart from its product. Card only; counts no
+    launch (it is not on the model's path)."""
+    if g.device.type != "cuda":
+        raise ValueError("dw_ablation: the modes run on a CUDA device only")
+    return _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win,
+                      DW_ABLATION_MODES.index(mode))
+
+
+def _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win, mode):
     if g.device.type != "cuda":
         raise ValueError(f"dw_fused: unsupported device {g.device}")
     n_cols, cap = inv_anchors.shape
@@ -271,20 +343,31 @@ def dw_fused(inv_wstart, inv_anchors, t3b, g, tile, win):
     _check(g, "g", torch.bfloat16, (cap, c_out), dev)
     _check(inv_anchors, "inv_anchors", torch.int32, (n_cols, cap), dev)
     _check(inv_wstart, "inv_wstart", torch.int32, (cap // tile * n_cols,), dev)
-    rows, n_split = _dw_splits(cap, cw, n_cols * c_out)
-    part = torch.empty((n_split, cw, n_cols * c_out), dtype=torch.float32,
+    t3k = _dw_pad_cols(t3b)
+    for t, name in ((t3k, "t3b"), (g, "g")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"dw_fused: {name} is not 16-byte aligned")
+    geo = dw_geometry(cap, cw, c_out, n_cols)
+    cw_k, n_split = geo["cw_kernel"], geo["splits"]
+    part = torch.empty((n_split, cw_k, n_cols * c_out), dtype=torch.float32,
                        device=dev)
-    out = torch.empty((n_cols, cw, c_out), dtype=torch.float32, device=dev)
-    fn = cuda_kernels.function("dw")
+    out = torch.empty((n_cols, cw_k, c_out), dtype=torch.float32, device=dev)
+    args = [inv_wstart.data_ptr(), inv_anchors.data_ptr(), t3k.data_ptr(),
+            g.data_ptr(), part.data_ptr(), out.data_ptr(), cap, cw_k, c_out,
+            n_cols, tile, win, geo["rows_per_split"], n_split]
+    if mode is None:
+        fn = cuda_kernels.function("dw")
+    else:
+        fn = cuda_kernels.function(
+            "dw", "lgs_dw_ablation",
+            cuda_kernels.KERNELS["dw"][2][:-1] + [ctypes.c_int,
+                                                   ctypes.c_void_p])
+        args.append(mode)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(inv_wstart.data_ptr(), inv_anchors.data_ptr(), t3b.data_ptr(),
-                g.data_ptr(), part.data_ptr(), out.data_ptr(), cap, cw, c_out,
-                n_cols, tile, win, rows, n_split, stream)
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dw kernel launch failed: CUDA error {rc}")
-    launch_counts["dw"] += 1
-    return out
+    return out if cw_k == cw else out[:, :cw].contiguous()
 
 
 def _inv_from_anchors(anchors, ov_in, ov_out, ov_off, dwov_in, dwov_off):

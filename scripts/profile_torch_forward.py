@@ -10,8 +10,9 @@ with ``--train`` chip_smoke.py's SGD train step (conditioned weights, CE
 with ignore label 255). Prints one JSON line: the card's name and power
 limit, wall time per run, the device busy share (kernel time / wall time),
 device time by category (the three hand-written kernels, GEMMs,
-gathers/scatters, elementwise) and the top kernels by device time. Needs a
-CUDA device.
+gathers/scatters, elementwise), each hand-written kernel's own time (the
+dw kernel apart from its reduce pass) and the top kernels by device time.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -111,6 +112,9 @@ def main() -> int:
         "device_busy_share": device_ms / (wall * 1e3) if wall else None,
         "device_ms_by_category": dict(sorted(by_cat.items(),
                                              key=lambda kv: -kv[1])),
+        "hand_written_kernels_ms": {
+            n[:120]: ms for n, ms in sorted(by_kernel.items())
+            if category(n) in ("sel_fwd", "csum", "dw")},
         "top_kernels_ms": [[n[:120], ms] for n, ms in top],
     }))
     return 0

@@ -103,12 +103,26 @@ def test_csum_kernel_matches_plain_version(n_groups, c_run):
     assert _rel(got, oc.csum_reference(*args)) <= RTOL
 
 
+def _dw_check(args, cw, c_out):
+    """One dw launch against its plain version, and a second launch
+    bit-equal to the first (no atomics: the same sum order)."""
+    n0 = oc.launch_counts["dw"]
+    got = oc.dw_fused(*args)
+    torch.cuda.synchronize()
+    assert oc.launch_counts["dw"] == n0 + 1
+    assert got.shape == (args[1].shape[0], cw, c_out)
+    assert _rel(got, oc.dw_fused_reference(*args)) <= RTOL
+    assert torch.equal(oc.dw_fused(*args), got)
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cw,c_out", [(9, 32), (288, 96), (1152, 256)])
+@pytest.mark.parametrize("cw,c_out", [(9, 32), (96, 32), (288, 96),
+                                      (384, 96), (576, 128), (1152, 256)])
 def test_dw_kernel_matches_plain_version(cw, c_out):
-    """3C from conv0's 9 (not a multiple of 8: the element-wise T3 loads)
-    to block5's 1152; 10% of the inverse anchors scrambled so the window
-    test decides."""
+    """3C from conv0's 9 (padded to 16 columns by the wrapper) to block5's
+    1152; 10% of the inverse anchors scrambled so the window test
+    decides."""
     dev = _card()
     rng, g = _graph(4, 3000, (4096,), down=False)
     m = g.gmaps["k3"].to(dev)
@@ -121,15 +135,88 @@ def test_dw_kernel_matches_plain_version(cw, c_out):
         np.float32)).to(dev, torch.bfloat16)
     gb = torch.from_numpy(rng.normal(size=(4096, c_out)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    args = [m.inv_wstart, inv, t3b, gb, m.tile, m.win]
-    n0 = oc.launch_counts["dw"]
+    _dw_check([m.inv_wstart, inv, t3b, gb, m.tile, m.win], cw, c_out)
+
+
+def _dw_synthetic(cap, cw, c_out, dev, seed, spread):
+    """Seeded dw inputs at tile 256 / window 512: window starts anywhere,
+    inverse anchors within ``spread`` rows of their row (the guard cap
+    where that leaves the table)."""
+    rng = np.random.default_rng(seed)
+    tile, win, n_cols = 256, 512, 8
+    ws = rng.integers(0, cap - win + 1, size=(cap // tile) * n_cols) // 8 * 8
+    inv = np.arange(cap)[None, :] + rng.integers(-spread, spread + 1,
+                                                 size=(n_cols, cap))
+    inv = np.where((inv < 0) | (inv >= cap), cap, inv)
+    t3b = rng.normal(size=(cap, cw)).astype(np.float32)
+    gb = rng.normal(size=(cap, c_out)).astype(np.float32)
+    return [torch.from_numpy(ws.astype(np.int32)).to(dev),
+            torch.from_numpy(inv.astype(np.int32)).to(dev),
+            torch.from_numpy(t3b).to(dev, torch.bfloat16),
+            torch.from_numpy(gb).to(dev, torch.bfloat16), tile, win]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw,c_out", [(9, 32), (288, 96)])
+def test_dw_kernel_ragged_last_split(cw, c_out):
+    """A cap (23 tiles) that is not a multiple of the rows per split: the
+    last split ends inside a chunk."""
+    dev = _card()
+    cap = 5888
+    geo = oc.dw_geometry(cap, cw, c_out, 8)
+    assert cap % geo["rows_per_split"] and cap % oc._DW_BK == 0
+    args = _dw_synthetic(cap, cw, c_out, dev, seed=cw, spread=400)
+    _dw_check(args, cw, c_out)
+
+
+@pytest.mark.cuda
+def test_dw_kernel_all_out_of_window_gives_zeros():
+    """Every inverse anchor outside its window (starts at the far end of
+    the table, anchors near their row or the guard): dW is exactly 0."""
+    dev = _card()
+    cap, cw, c_out = 4096, 288, 96
+    args = _dw_synthetic(cap, cw, c_out, dev, seed=1, spread=100)
+    args[0] = torch.full_like(args[0], cap - 512)
+    args[1] = torch.where(args[1] < cap - 512 - 1, args[1],
+                          torch.full_like(args[1], cap))
     got = oc.dw_fused(*args)
     torch.cuda.synchronize()
-    assert oc.launch_counts["dw"] == n0 + 1
     assert got.shape == (8, cw, c_out)
-    assert _rel(got, oc.dw_fused_reference(*args)) <= RTOL
-    # no atomics: a second launch sums in the same order, bit for bit
-    assert torch.equal(oc.dw_fused(*args), got)
+    assert bool((got == 0).all())
+
+
+@pytest.mark.cuda
+def test_dw_config_matches_wrapper_and_fits_two_blocks():
+    """The tile compiled into csrc/dw.cu is the wrapper's, and two blocks
+    share an SM (the waves _dw_splits sizes the grid to)."""
+    _card()
+    cfg = oc.dw_config()
+    assert cfg["blocks_per_sm"] * 132 == oc.DW_RESIDENT_BLOCKS
+    assert cfg["dynamic_smem_bytes"] > 48 * 1024
+
+
+@pytest.mark.cuda
+def test_dw_ablation_modes_launch_and_full_is_the_kernel():
+    """Every ablation mode launches at a ragged cap; "full" is dw_fused bit
+    for bit, no_sel on an identity tiling (every row its own anchor, in
+    window) is too, and no mode counts a model launch."""
+    dev = _card()
+    cap, cw, c_out = 5888, 288, 96
+    args = _dw_synthetic(cap, cw, c_out, dev, seed=2, spread=300)
+    want = oc.dw_fused(*args)
+    n0 = oc.launch_counts["dw"]
+    outs = {m: oc.dw_ablation(*args, mode=m) for m in oc.DW_ABLATION_MODES}
+    torch.cuda.synchronize()
+    assert oc.launch_counts["dw"] == n0
+    assert all(o.shape == (8, cw, c_out) for o in outs.values())
+    assert torch.equal(outs["full"], want)
+    ident = list(args)
+    ident[0] = (torch.arange(cap // 256, device=dev, dtype=torch.int32)
+                .clamp(max=(cap - 512) // 256) * 256).repeat_interleave(8)
+    ident[1] = torch.arange(cap, device=dev,
+                            dtype=torch.int32).repeat(8, 1).contiguous()
+    assert torch.equal(oc.dw_ablation(*ident, mode="no_sel"),
+                       oc.dw_fused(*ident))
 
 
 @pytest.mark.cuda
