@@ -226,15 +226,17 @@ def sel_inputs(graph, c_run: int, gen):
                 win=m.win)
 
 
-def csum_inputs(graph, c_run: int, gen):
+def csum_inputs(graph, c_run: int, gen, map_name: str = "down0"):
+    """A down map's group parents and window starts (the L0->L1 map's by
+    default) and random bf16 P of width c_run."""
     from languagegroundedsemseg_torch.ops.onehot_conv import (
         _abs_parent,
         _parent_groups,
     )
 
-    m = graph.gmaps["down0"]
+    m = graph.gmaps[map_name]
     if m.tile <= 0:
-        raise RuntimeError("the L0->L1 down map of the main-path batch has "
+        raise RuntimeError(f"the {map_name} map of the main-path batch has "
                            "no window")
     parent = _abs_parent(m)
     pg = _parent_groups(parent, m.kslot, m.num_slots, m.n_groups,
@@ -286,6 +288,86 @@ def csum_work(a, n_summed: int) -> tuple:
     nbytes = (n_summed * c_run * 2 + a["n_groups"] * cap_in * 4
               + a["wstart"].numel() * 4 + a["cap_out"] * c_run * 4)
     return nbytes, n_summed * c_run
+
+
+def csum_shape_record(a, map_name: str) -> dict:
+    """The fields of a csum record that need no card: the map, widths and
+    window, the rows the kernel sums, the launch plan
+    (``csum_geometry``), and the bytes and operations of the bound."""
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    cap_in, c_run = a["pall"].shape
+    dst, _ = csum_rows(a)
+    nbytes, ops = csum_work(a, int(dst.numel()))
+    return {
+        "name": "csum", "map": map_name, "c_run": c_run, "cap_in": cap_in,
+        "cap_out": a["cap_out"], "tile": a["tile"], "win": a["win"],
+        "n_groups": a["n_groups"], "summed_rows": int(dst.numel()),
+        **oc.csum_geometry(cap_in, a["cap_out"], c_run, a["tile"], a["win"],
+                           a["n_groups"]),
+        "library_call": "index_add_ of the summed rows (f32)",
+        "bytes": nbytes, "operations": ops, "peak_ops_per_s": F32_OPS_PER_S}
+
+
+def queued_ms(fn, runs: int, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: ``runs`` calls enqueued
+    behind a ~10 ms device sleep, so they run back to back whatever the
+    host's time per call, between two CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def csum_record(graph, c_run: int, gen, map_name: str = "down0") -> dict:
+    """csum against its plain version at width c_run on a down map of the
+    main-path batch, a second launch bit-equal to the first, timed beside
+    the plain version and ``index_add_`` of the summed rows: per call with
+    its host time (``ms``, as every kernel row) and back to back on the
+    device (``device_ms``); with its launch plan, the compiled constants
+    and blocks an SM holds (``csum_config``) and what ptxas reported."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    a = csum_inputs(graph, c_run, gen, map_name)
+    args = [a[k] for k in ("wstart", "parent_g", "pall", "cap_out", "tile",
+                           "win", "n_groups")]
+    name = f"csum {map_name} c={c_run}"
+    got = oc.csum(*args)
+    err, scale = _hold(name, got, oc.csum_reference(*args), KERNEL_RTOL)
+    if not torch.equal(oc.csum(*args), got):
+        raise AssertionError(f"{name}: a second launch differs from the first")
+    dst, src = csum_rows(a)
+    p32 = a["pall"][src].to(torch.float32)
+    lib_out = torch.zeros((a["cap_out"], c_run), device="cuda")
+    rec = csum_shape_record(a, map_name)
+    cfg = oc.csum_config(a["tile"], rec["entries"])
+
+    def kernel():
+        oc.csum(*args)
+
+    def library():
+        lib_out.index_add_(0, dst, p32)
+
+    rec.update({
+        "config": cfg, "blocks_per_sm": cfg["blocks_per_sm"],
+        "ptxas": cuda_kernels.ptxas_usage("csum", "csum_kernel"),
+        "max_abs_err": err, "max_abs_ref": scale, "bit_equal_relaunch": True,
+        "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+        "plain_ms": cuda_ms(lambda: oc.csum_reference(*args),
+                            TIMED_KERNEL_RUNS),
+        "library_ms": cuda_ms(library, TIMED_KERNEL_RUNS),
+        "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+        "library_device_ms": queued_ms(library, TIMED_KERNEL_RUNS)})
+    return rec
 
 
 def dw_inputs(graph, cw: int, c_out: int, gen, map_name: str = "l0.k3"):
@@ -412,28 +494,7 @@ def phase_kernels(graph, bw: float) -> dict:
             "peak_ops_per_s": F32_OPS_PER_S}
 
     for c_run in (32, 96, 256):
-        a = csum_inputs(graph, c_run, gen)
-        args = [a[k] for k in ("wstart", "parent_g", "pall", "cap_out", "tile",
-                               "win", "n_groups")]
-        err, scale = _hold(f"csum c={c_run}", oc.csum(*args),
-                           oc.csum_reference(*args), KERNEL_RTOL)
-        dst, src = csum_rows(a)
-        p32 = a["pall"][src].to(torch.float32)
-        lib_out = torch.zeros((a["cap_out"], c_run), device="cuda")
-        nbytes, ops = csum_work(a, int(dst.numel()))
-        results[("csum", c_run)] = {
-            "name": "csum", "c_run": c_run, "cap_in": a["pall"].shape[0],
-            "cap_out": a["cap_out"], "tile": a["tile"], "win": a["win"],
-            "n_groups": a["n_groups"], "summed_rows": int(dst.numel()),
-            "max_abs_err": err, "max_abs_ref": scale,
-            "ms": cuda_ms(lambda: oc.csum(*args), TIMED_KERNEL_RUNS),
-            "plain_ms": cuda_ms(lambda: oc.csum_reference(*args),
-                                TIMED_KERNEL_RUNS),
-            "library_ms": cuda_ms(lambda: lib_out.index_add_(0, dst, p32),
-                                  TIMED_KERNEL_RUNS),
-            "library_call": "index_add_ of the summed rows (f32)",
-            "bytes": nbytes, "operations": ops,
-            "peak_ops_per_s": F32_OPS_PER_S}
+        results[("csum", c_run)] = csum_record(graph, c_run, gen)
 
     for cw, c_out, map_name in DW_SHAPES:
         results[("dw", cw)] = dw_record(graph, cw, c_out, gen, map_name)

@@ -58,10 +58,19 @@ from languagegroundedsemseg_torch.sparse.types import MaskedShiftMap
 # on the card and nowhere else (the CPU path runs the plain version).
 launch_counts = {"sel_fwd": 0, "csum": 0, "dw": 0}
 
-# csum keeps a (tile, chunk) f32 accumulator in shared memory; the chunk of
-# channels per block is sized to this budget (below the 227 KB a block may
-# use, so two blocks can share an SM).
-CSUM_SMEM_BUDGET = 96 * 1024
+# csum's launch plan (csrc/csum.cu, checked against the kernel's own by
+# ``csum_config``): _CS_THREADS threads (_CS_WARPS warps) a block, one block
+# per output tile and channel split; a block stages at most CSUM_HIT_CAP
+# window entries (n_groups * win) and loads _CS_BATCH children at once.
+# Channels are split over blocks only while the tiles alone give fewer than
+# CSUM_MIN_BLOCKS blocks (two an SM of an H100 SXM), never below
+# CSUM_MIN_SPLIT channels a block.
+_CS_THREADS, _CS_WARPS, _CS_BATCH = 256, 8, 4
+CSUM_HIT_CAP = 8192
+CSUM_MIN_BLOCKS = 132 * 2
+CSUM_MIN_SPLIT = 32
+# the dynamic shared memory a block may use on Hopper (227 KB)
+SMEM_LIMIT_BYTES = 232448
 
 # dw's launch geometry (csrc/dw.cu, checked against the kernel's own by
 # ``dw_config``): a block owns a (_DW_BM rows of 3C) x (_DW_BN columns of
@@ -180,40 +189,114 @@ def csum_reference(wstart, parent_g, pall, cap_out, tile, win, n_groups):
     return out[:cap_out]
 
 
-def _csum_chunk(tile: int, c_run: int) -> int:
-    """Channels per csum block: all of c_run when the (tile, c_run) f32
-    accumulator fits the budget, else the largest multiple of 32 that
-    does."""
-    fit = max(32, CSUM_SMEM_BUDGET // (tile * 4) // 32 * 32)
-    return min(c_run, fit)
+def _csum_smem_bytes(tile: int, entries: int) -> int:
+    """csrc/csum.cu's smem_bytes: the hit list (int32 a window entry), the
+    (warp, row) offsets and row starts (int32), the staged local rows
+    (int16 an entry), rounded up to 16 bytes."""
+    raw = entries * 4 + (_CS_WARPS * tile + tile + 1) * 4 + entries * 2
+    return -(-raw // 16) * 16
+
+
+def _csum_splits(n_tiles: int, c_run: int) -> tuple:
+    """(channels per block, split count) of a csum launch: all of c_run in
+    one block per tile where the tiles give CSUM_MIN_BLOCKS blocks, else
+    enough whole 8-channel vectors per split to get there, but no fewer than
+    CSUM_MIN_SPLIT channels (or c_run). A function of the shapes alone; a
+    split changes no sum's order."""
+    vecs = c_run // 8
+    want = -(-CSUM_MIN_BLOCKS // n_tiles)
+    per = max(-(-vecs // want), min(vecs, CSUM_MIN_SPLIT // 8))
+    return per * 8, -(-vecs // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _csum_plan(cap_in: int, cap_out: int, c_run: int, tile: int, win: int,
+               n_groups: int) -> tuple:
+    """(channels per split, split count, shared bytes) of a csum launch;
+    raises ValueError for shapes the kernel does not take (not cached)."""
+    if c_run <= 0 or c_run % 8:
+        raise ValueError(f"csum: c_run {c_run} is not a multiple of 8")
+    if (tile <= 0 or cap_out % tile or win <= 0 or win > cap_in
+            or n_groups <= 0):
+        raise ValueError(f"csum: cap_in {cap_in}, cap_out {cap_out}, "
+                         f"tile {tile}, win {win}, n_groups {n_groups}")
+    entries = n_groups * win
+    if entries > CSUM_HIT_CAP:
+        raise ValueError(f"csum: {n_groups} x {win} window entries exceed "
+                         f"the hit list's {CSUM_HIT_CAP}")
+    smem = _csum_smem_bytes(tile, entries)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"csum: {smem} bytes of shared memory exceed "
+                         f"{SMEM_LIMIT_BYTES}")
+    return (*_csum_splits(cap_out // tile, c_run), smem)
+
+
+def csum_geometry(cap_in: int, cap_out: int, c_run: int, tile: int, win: int,
+                  n_groups: int) -> dict:
+    """The launch of ``csum`` at these shapes: grid (tiles, channel splits),
+    threads, dynamic shared memory, channels per split. Raises ValueError
+    for shapes the kernel does not take: c_run not a multiple of 8 (16-byte
+    row loads), a tile that does not divide cap_out, a window wider than
+    cap_in, more window entries than the hit list holds, or more shared
+    memory than a block may use."""
+    chunk, splits, smem = _csum_plan(cap_in, cap_out, c_run, tile, win,
+                                     n_groups)
+    n_tiles = cap_out // tile
+    return {"grid": [n_tiles, splits], "blocks": n_tiles * splits,
+            "threads": _CS_THREADS, "smem_bytes": smem, "splits": splits,
+            "chunk": chunk, "entries": n_groups * win,
+            "hit_capacity": CSUM_HIT_CAP}
+
+
+def csum_config(tile: int = 128, entries: int = 4096) -> dict:
+    """The constants compiled into csrc/csum.cu, its shared memory at
+    (tile, entries) window entries and the blocks an SM holds there, from
+    the card's runtime (the defaults are the main path's L0->L1 map); raises
+    if they differ from this module's copy. Builds and loads the kernel;
+    needs a CUDA device."""
+    cfg = (ctypes.c_int * 5)()
+    rc = cuda_kernels.function(
+        "csum", "lgs_csum_config",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])(
+            ctypes.addressof(cfg), tile, entries)
+    if rc != 0:
+        raise RuntimeError(f"csum occupancy query failed: CUDA error {rc}")
+    keys = ("threads", "hit_capacity", "batch", "dynamic_smem_bytes",
+            "blocks_per_sm")
+    out = dict(zip(keys, cfg))
+    want = {"threads": _CS_THREADS, "hit_capacity": CSUM_HIT_CAP,
+            "batch": _CS_BATCH,
+            "dynamic_smem_bytes": _csum_smem_bytes(tile, entries)}
+    if any(out[k] != v for k, v in want.items()):
+        raise RuntimeError(f"csrc/csum.cu constants {out} differ from {want}")
+    return out
 
 
 def csum(wstart, parent_g, pall, cap_out, tile, win, n_groups):
     """Windowed child sum; contract as ``csum_reference``. A CUDA input
-    launches the Hopper kernel (``csrc/csum.cu``); a CPU input runs the
-    plain version."""
+    launches the Hopper kernel (``csrc/csum.cu``) or raises (see
+    ``csum_geometry``); a CPU input runs the plain version."""
     if pall.device.type == "cpu":
         return csum_reference(wstart, parent_g, pall, cap_out, tile, win,
                               n_groups)
     if pall.device.type != "cuda":
         raise ValueError(f"csum: unsupported device {pall.device}")
     cap_in, c_run = pall.shape
-    if tile <= 0 or cap_out % tile or win > cap_in:
-        raise ValueError(f"csum: cap_in {cap_in}, cap_out {cap_out}, "
-                         f"tile {tile}, win {win}")
+    chunk, _, smem = _csum_plan(cap_in, cap_out, c_run, tile, win, n_groups)
     dev = pall.device
     _check(pall, "pall", torch.bfloat16, device=dev)
     _check(parent_g, "parent_g", torch.int32, (n_groups, cap_in), dev)
     _check(wstart, "wstart", torch.int32, (cap_out // tile * n_groups,), dev)
-    chunk = _csum_chunk(tile, c_run)
-    smem = tile * chunk * 4
+    if pall.data_ptr() % 16:
+        raise ValueError("csum: pall is not 16-byte aligned")
     out = torch.empty((cap_out, c_run), dtype=torch.float32, device=dev)
     fn = cuda_kernels.function("csum")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the raw stream handle: torch.cuda.current_stream() builds a Stream
+        # object, which costs more host time than this launch's kernel
         rc = fn(wstart.data_ptr(), parent_g.data_ptr(), pall.data_ptr(),
                 out.data_ptr(), cap_in, cap_out, c_run, tile, win, n_groups,
-                chunk, smem, stream)
+                chunk, smem, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"csum kernel launch failed: CUDA error {rc}")
     launch_counts["csum"] += 1

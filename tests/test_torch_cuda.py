@@ -8,8 +8,9 @@ a GPU machine without them; tests/conftest.py imports jax, hence:
 
 Inputs are the graphs of tests/test_torch_kernels.py built by the port's own
 builder; tolerance 1e-5 of max |ref| (same bf16 values summed in f32, only
-the order differs). The one-hot ablation kernels take their microbenchmarks'
-seeded inputs at small and odd sizes, with the same 1e-5 except the
+the order differs), and a second launch of csum or dw bit-equal to the
+first. The one-hot ablation kernels take their microbenchmarks' seeded
+inputs at small and odd sizes, with the same 1e-5 except the
 variants kernel's full mode, which rounds each column's product to bf16
 (1e-2). The autograd test compares a conv's gradients on the
 card with the CPU's plain path: both run bf16 projection GEMMs, whose bf16
@@ -79,28 +80,91 @@ def test_sel_fwd_kernel_matches_plain_version(c_run):
     assert _rel(got, oc.sel_fwd_reference(*args)) <= RTOL
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_groups,c_run", [(1, 32), (2, 32), (2, 256)])
-def test_csum_kernel_matches_plain_version(n_groups, c_run):
-    dev = _card()
+def _csum_case(n_groups, c_run, variant, dev):
+    """csum inputs on the test graph's L0->L1 down map. ``variant``:
+    "map" as built (1 group, or pinned to 2 groups at tile 128 / win 1024);
+    "scrambled" with 15% of the group parents moved anywhere in [0,
+    cap_out] (other tiles, non-members) and 40 window rows of tile 0 given
+    one parent (more than 8 children); "tile512" pinned to tile 512 / win
+    2048; "cut" with the last tile's windows running past cap_in and tile
+    1's starts moved off a multiple of 4 (scalar head and tail)."""
     rng, g = _graph(7 if n_groups == 1 else 11, 2600, (4096, 2048), down=True)
-    if n_groups == 1:
-        m = g.gmaps["down0"]
-    else:
-        m = gh._try_child_sum_map(g.maps["down0"].idx, 4096,
-                                  pin_tilewin=(2, 128, 1024))
+    pin = {"tile512": (1, 512, 2048)}.get(
+        variant, None if n_groups == 1 else (2, 128, 1024))
+    m = g.gmaps["down0"] if pin is None else gh._try_child_sum_map(
+        g.maps["down0"].idx, 4096, pin_tilewin=pin)
     m = m.to(dev)
     assert m.tile > 0 and m.n_groups == n_groups
+    assert m.tile == (512 if variant == "tile512" else 128)
     pg = oc._parent_groups(oc._abs_parent(m), m.kslot, m.num_slots,
                            n_groups, m.out_capacity)
-    pall = torch.from_numpy(rng.normal(size=(4096, c_run)).astype(
+    ws = m.wstart.clone()
+    cap_in, cap_out, win = 4096, m.out_capacity, m.win
+    if variant == "scrambled":
+        pick = rng.random(tuple(pg.shape)) < 0.15
+        vals = rng.integers(0, cap_out + 1, size=tuple(pg.shape))
+        pgn = np.where(pick, vals, pg.cpu().numpy())
+        for gi in range(n_groups):
+            w0 = int(ws[gi])
+            pgn[gi, w0 + 16:w0 + 56] = 5
+        pg = torch.from_numpy(pgn.astype(np.int32)).to(dev)
+    elif variant == "cut":
+        n_tiles = cap_out // m.tile
+        ws = ws.reshape(n_tiles, n_groups)
+        ws[-1] = cap_in - win // 2
+        ws[1] = ws[1] + 1
+        ws = ws.reshape(-1).contiguous()
+    pall = torch.from_numpy(rng.normal(size=(cap_in, c_run)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    args = [m.wstart, pg, pall, m.out_capacity, m.tile, m.win, n_groups]
+    return [ws, pg, pall, cap_out, m.tile, win, n_groups]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_groups,c_run,variant", [
+    (1, 32, "map"), (2, 32, "map"), (2, 256, "map"), (1, 8, "map"),
+    (2, 96, "map"), (1, 128, "map"), (2, 32, "scrambled"),
+    (2, 128, "scrambled"), (1, 96, "tile512"), (1, 256, "tile512"),
+    (2, 64, "cut"), (1, 8, "cut")])
+def test_csum_kernel_matches_plain_version(n_groups, c_run, variant):
+    """One launch against the plain version, a second launch bit-equal to
+    the first (a fixed sum order, no atomics), and the wrapper raising on
+    a width its 16-byte row loads cannot take."""
+    dev = _card()
+    args = _csum_case(n_groups, c_run, variant, dev)
     n0 = oc.launch_counts["csum"]
     got = oc.csum(*args)
     torch.cuda.synchronize()
     assert oc.launch_counts["csum"] == n0 + 1
-    assert _rel(got, oc.csum_reference(*args)) <= RTOL
+    assert got.shape == (args[3], c_run)
+    want = oc.csum_reference(*args)
+    assert _rel(got, want) <= RTOL
+    assert torch.equal(oc.csum(*args), got)
+    if variant == "scrambled":
+        # the 40-child parent of tile 0 is summed whole
+        assert float(want[5].abs().max()) > 0
+    bad = list(args)
+    bad[2] = torch.zeros((args[2].shape[0], 12), dtype=torch.bfloat16,
+                         device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        oc.csum(*bad)
+    assert oc.launch_counts["csum"] == n0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,entries", [(128, 4096), (128, 2048),
+                                          (256, 2048), (128, 1024),
+                                          (512, 8192)])
+def test_csum_config_matches_plan(tile, entries):
+    """The constants compiled into csrc/csum.cu are the wrapper's, its
+    shared memory at the main path's windows and the menu's largest is the
+    plan's, and at least two blocks share an SM there."""
+    _card()
+    cfg = oc.csum_config(tile, entries)
+    geo = oc.csum_geometry(589824, 2048 * tile, 256, tile, entries, 1)
+    assert cfg["dynamic_smem_bytes"] == geo["smem_bytes"]
+    assert cfg["threads"] == geo["threads"]
+    assert cfg["hit_capacity"] == geo["hit_capacity"] >= entries
+    assert cfg["blocks_per_sm"] >= 2
 
 
 def _dw_check(args, cw, c_out):
