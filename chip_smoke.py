@@ -32,8 +32,9 @@ from unittest import mock
 import numpy as np
 import torch
 
-# sel_fwd / csum compared with their plain versions: both add the same bf16
-# values in f32, only the order of the sum differs
+# csum compared with its plain version: both add the same bf16 values in
+# f32, only the order of the sum differs. sel_fwd adds them in the plain
+# version's order, so it is held bit for bit.
 KERNEL_RTOL = 1e-5
 # dw against its plain version: the same bf16 products summed in f32 in
 # another order, over up to 589,824 rows
@@ -59,6 +60,9 @@ SCENES, POINTS = 4, 180_000          # the bench.py batch
 # dw in phase kernels: (3C, c_out, k3 map) of block8's convs and conv0 at
 # L0, and of block1's four convs, which run on the L1 map
 DW_SHAPES = ((288, 96, "l0.k3"), (9, 32, "l0.k3"), (96, 32, "l1.k3"))
+# sel_fwd in phase kernels: (c_run, k3 map) of block8's convs, conv0 and
+# block5's dX at L0, and of block4's convs at L4 (4,096 rows)
+SEL_SHAPES = ((96, "l0.k3"), (32, "l0.k3"), (384, "l0.k3"), (256, "l4.k3"))
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
@@ -212,18 +216,31 @@ def expected_launches(model, graph, train: bool = False) -> dict:
     return want
 
 
-def sel_inputs(graph, c_run: int, gen):
+def sel_inputs(graph, c_run: int, gen, map_name: str = "l0.k3"):
+    """A k3 map's anchors, window starts and center mask (the L0 map's by
+    default) and random bf16 P of 9 blocks of c_run channels."""
     from languagegroundedsemseg_torch.ops.msconv import _abs_anchors
 
-    m = graph.gmaps["l0.k3"]
-    if m.tile <= 0:
-        raise RuntimeError("the L0 k3 map of the main-path batch has no window")
+    m = graph.gmaps[map_name]
+    if not ms_windowed(m):
+        raise RuntimeError(f"the {map_name} map of the main-path batch has "
+                           "no window")
     anchors = _abs_anchors(m.anchors).contiguous()
     cap = anchors.shape[1]
     pall = torch.randn((cap, 9 * c_run), generator=gen, device=anchors.device)
     return dict(wstart=m.wstart, anchors=anchors, mc=m.mc,
                 pall=pall.to(torch.bfloat16), n_cols=8, tile=m.tile,
                 win=m.win)
+
+
+def sel_hits(a) -> torch.Tensor:
+    """(8, cap) bool: the anchors inside their tile's window, the ones the
+    kernel adds."""
+    cap = a["anchors"].shape[1]
+    t = torch.arange(cap, device=a["anchors"].device) // a["tile"]
+    ws = a["wstart"].long().view(-1, 8)[t].t()
+    an = a["anchors"].long()
+    return (an >= ws) & (an < ws + a["win"])
 
 
 def csum_inputs(graph, c_run: int, gen, map_name: str = "down0"):
@@ -254,15 +271,52 @@ def sel_work(a) -> tuple:
     starts and mask, and the f32 output."""
     cap = a["anchors"].shape[1]
     c_run = a["pall"].shape[1] // 9
-    t = torch.arange(cap, device=a["anchors"].device) // a["tile"]
-    hits = 0
-    for c in range(8):
-        ws = a["wstart"][t * 8 + c].long()
-        an = a["anchors"][c].long()
-        hits += int(((an >= ws) & (an < ws + a["win"])).sum())
+    hits = int(sel_hits(a).sum())
     nbytes = (cap * c_run * 2 + hits * c_run * 2 + a["anchors"].numel() * 4
               + a["wstart"].numel() * 4 + cap + cap * c_run * 4)
     return nbytes, (hits + cap) * c_run, hits
+
+
+def sel_shape_record(a, map_name: str) -> dict:
+    """The fields of a sel_fwd record that need no card: the map, width and
+    window, the anchored rows the kernel adds, the launch plan
+    (``sel_geometry``), and the bytes and operations of the bound."""
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    cap = a["anchors"].shape[1]
+    c_run = a["pall"].shape[1] // 9
+    nbytes, ops, hits = sel_work(a)
+    return {
+        "name": "sel_fwd", "map": map_name, "c_run": c_run, "cap": cap,
+        "tile": a["tile"], "win": a["win"], "anchored_rows": hits,
+        **oc.sel_geometry(cap, c_run, a["tile"], a["win"]),
+        "library_call": ("F.embedding_bag(idx, P.float().view(9*cap, c_run),"
+                         " per_sample_weights=w, mode='sum'): idx[o] = [9o,"
+                         " 9a_c(o)+c+1], w = mc x hit; f32 table, idx and w "
+                         "built outside the timing"),
+        "bytes": nbytes, "operations": ops, "peak_ops_per_s": F32_OPS_PER_S}
+
+
+def sel_library(a):
+    """The selector forward as ONE library call: ``F.embedding_bag`` in sum
+    mode over P's (row, block) pieces as rows of an f32 table, each output
+    row a bag of its center piece and its 8 anchored pieces, weighted by
+    mc x hit (a miss points at piece 0 with weight 0)."""
+    import torch.nn.functional as F
+
+    cap = a["anchors"].shape[1]
+    c_run = a["pall"].shape[1] // 9
+    hit = sel_hits(a)
+    rows = torch.arange(cap, device=hit.device)
+    cols = torch.arange(1, 9, device=hit.device)[:, None]
+    idx = torch.cat([rows[None] * 9,
+                     torch.where(hit, a["anchors"].long() * 9 + cols, 0)])
+    mc = a["mc"].to(torch.float32)
+    w = torch.cat([mc[None], hit.to(torch.float32) * mc])
+    idx, w = idx.t().contiguous(), w.t().contiguous()
+    table = a["pall"].to(torch.float32).view(cap * 9, c_run)
+    return lambda: F.embedding_bag(idx, table, per_sample_weights=w,
+                                   mode="sum")
 
 
 def csum_rows(a):
@@ -327,6 +381,21 @@ def queued_ms(fn, runs: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / runs
 
 
+def host_ms(fn, runs: int, warmup: int = 3) -> float:
+    """Host milliseconds per call of ``fn``: ``runs`` calls on the host's
+    clock with no synchronisation inside, so the device runs behind and
+    only the host's share (checks, allocation, the launch) is timed."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * seconds / runs
+
+
 def csum_record(graph, c_run: int, gen, map_name: str = "down0") -> dict:
     """csum against its plain version at width c_run on a down map of the
     main-path batch, a second launch bit-equal to the first, timed beside
@@ -367,6 +436,51 @@ def csum_record(graph, c_run: int, gen, map_name: str = "down0") -> dict:
         "library_ms": cuda_ms(library, TIMED_KERNEL_RUNS),
         "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
         "library_device_ms": queued_ms(library, TIMED_KERNEL_RUNS)})
+    return rec
+
+
+def sel_record(graph, c_run: int, gen, map_name: str = "l0.k3") -> dict:
+    """sel_fwd against its plain version at width c_run on a k3 map of the
+    main-path batch, held bit for bit (the same adds in the same order),
+    and a second launch bit-equal to the first; timed beside the plain
+    version and ``F.embedding_bag`` (``sel_library``): per call with its
+    host time (``ms``, as every kernel row), back to back on the device
+    (``device_ms``), and the wrapper's host time alone (``host_ms``); with
+    its launch plan, the compiled constants and blocks an SM holds
+    (``sel_config``) and what ptxas reported."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    a = sel_inputs(graph, c_run, gen, map_name)
+    args = [a[k] for k in ("wstart", "anchors", "mc", "pall", "n_cols",
+                           "tile", "win")]
+    name = f"sel_fwd {map_name} c={c_run}"
+    got = oc.sel_fwd(*args)
+    ref = oc.sel_fwd_reference(*args)
+    err, scale = _hold(name, got, ref, 0.0)
+    if not torch.equal(oc.sel_fwd(*args), got):
+        raise AssertionError(f"{name}: a second launch differs from the first")
+    rec = sel_shape_record(a, map_name)
+    library = sel_library(a)
+    lib_err = float((library() - ref).abs().max())
+    del ref
+    cfg = oc.sel_config(8, rec["rows_per_block"], rec["threads"])
+
+    def kernel():
+        oc.sel_fwd(*args)
+
+    rec.update({
+        "config": cfg, "blocks_per_sm": cfg["blocks_per_sm"],
+        "ptxas": cuda_kernels.ptxas_usage("sel_fwd", "sel_fwd_kernelILi8"),
+        "max_abs_err": err, "max_abs_ref": scale, "bit_equal_relaunch": True,
+        "library_max_abs_err": lib_err,
+        "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+        "plain_ms": cuda_ms(lambda: oc.sel_fwd_reference(*args),
+                            TIMED_KERNEL_RUNS),
+        "library_ms": cuda_ms(library, TIMED_KERNEL_RUNS),
+        "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+        "library_device_ms": queued_ms(library, TIMED_KERNEL_RUNS),
+        "host_ms": host_ms(kernel, 5 * TIMED_KERNEL_RUNS)})
     return rec
 
 
@@ -470,28 +584,12 @@ def _hold(name, got, ref, rtol):
 def phase_kernels(graph, bw: float) -> dict:
     """Each kernel against its plain version on the main-path batch's maps,
     at the widths the main path gives it: sel_fwd at 96 / 32 (forward) and
-    384 (block5's dX); csum at 32 / 96 (forward) and 256 (up-conv dX); dw at
-    DW_SHAPES."""
-    from languagegroundedsemseg_torch.ops import onehot_conv as oc
-
+    384 (block5's dX) on the L0 map and 256 on the L4 map (4,096 rows);
+    csum at 32 / 96 (forward) and 256 (up-conv dX); dw at DW_SHAPES."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for c_run in (96, 32, 384):
-        a = sel_inputs(graph, c_run, gen)
-        args = [a[k] for k in ("wstart", "anchors", "mc", "pall", "n_cols",
-                               "tile", "win")]
-        err, scale = _hold(f"sel_fwd c={c_run}", oc.sel_fwd(*args),
-                           oc.sel_fwd_reference(*args), KERNEL_RTOL)
-        nbytes, ops, hits = sel_work(a)
-        results[("sel_fwd", c_run)] = {
-            "name": "sel_fwd", "c_run": c_run, "cap": a["anchors"].shape[1],
-            "tile": a["tile"], "win": a["win"], "anchored_rows": hits,
-            "max_abs_err": err, "max_abs_ref": scale,
-            "ms": cuda_ms(lambda: oc.sel_fwd(*args), TIMED_KERNEL_RUNS),
-            "plain_ms": cuda_ms(lambda: oc.sel_fwd_reference(*args),
-                                TIMED_KERNEL_RUNS),
-            "library_ms": None, "bytes": nbytes, "operations": ops,
-            "peak_ops_per_s": F32_OPS_PER_S}
+    for c_run, map_name in SEL_SHAPES:
+        results[("sel_fwd", c_run)] = sel_record(graph, c_run, gen, map_name)
 
     for c_run in (32, 96, 256):
         results[("csum", c_run)] = csum_record(graph, c_run, gen)
@@ -1008,8 +1106,8 @@ def main() -> int:
     from languagegroundedsemseg_torch.data.batching import BatchBuilder
     from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
 
-    # the main-path batch; its L0 k3 and L0->L1 down maps give the kernel
-    # phase its shapes
+    # the main-path batch; its L0 and L4 k3 maps and L0->L1 down map give
+    # the kernel phase its shapes
     scenes = main_path_scenes()
     builder = BatchBuilder(spec=res16unet_graph_spec(), ship_coords=False,
                            compact_feats=True)

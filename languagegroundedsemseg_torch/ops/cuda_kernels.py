@@ -31,7 +31,7 @@ _vp = ctypes.c_void_p
 _i = ctypes.c_int
 # name -> (source file, exported C function, argtypes)
 KERNELS = {
-    "sel_fwd": ("sel_fwd.cu", "lgs_sel_fwd", [_vp] * 5 + [_i] * 5 + [_vp]),
+    "sel_fwd": ("sel_fwd.cu", "lgs_sel_fwd", [_vp] * 5 + [_i] * 9 + [_vp]),
     "csum": ("csum.cu", "lgs_csum", [_vp] * 4 + [_i] * 8 + [_vp]),
     "dw": ("dw.cu", "lgs_dw", [_vp] * 6 + [_i] * 8 + [_vp]),
     "onehot_gemm": ("onehot_gemm.cu", "lgs_onehot_gemm",

@@ -58,6 +58,20 @@ from languagegroundedsemseg_torch.sparse.types import MaskedShiftMap
 # on the card and nowhere else (the CPU path runs the plain version).
 launch_counts = {"sel_fwd": 0, "csum": 0, "dw": 0}
 
+# sel_fwd's launch plan (csrc/sel_fwd.cu, checked against the kernel's own by
+# ``sel_config``): at most _SEL_THREADS threads a block, at most 64 registers
+# a thread so that _SEL_BLOCKS_PER_SM blocks share an SM, and at most
+# _SEL_SMEM_LIMIT bytes of staged anchors a block. A block owns a run of rows
+# inside one tile: the most rows (a multiple of 4 dividing the tile) that
+# keep the block at SEL_MAX_ITEMS (row, 8-channel vector) items, one a
+# thread, and the launch at SEL_MIN_BLOCKS blocks (two an SM of an H100
+# SXM). Channels are split over blocks only where even 4-row blocks are too
+# few, never below SEL_MIN_SPLIT channels a block.
+_SEL_THREADS, _SEL_BLOCKS_PER_SM, _SEL_SMEM_LIMIT = 256, 4, 48 * 1024
+SEL_MAX_ITEMS = 256
+SEL_MIN_BLOCKS = 132 * 2
+SEL_MIN_SPLIT = 32
+
 # csum's launch plan (csrc/csum.cu, checked against the kernel's own by
 # ``csum_config``): _CS_THREADS threads (_CS_WARPS warps) a block, one block
 # per output tile and channel split; a block stages at most CSUM_HIT_CAP
@@ -125,33 +139,116 @@ def sel_fwd_reference(wstart, anchors, mc, pall, n_cols, tile, win):
     return out * mc[:, None].to(torch.float32)
 
 
+def _sel_smem_bytes(n_cols: int, rows: int) -> int:
+    """csrc/sel_fwd.cu's smem_bytes: the staged anchor row of every
+    (column, row) of a block, int32, rounded up to 16 bytes."""
+    return -(-(n_cols * rows * 4) // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def _sel_plan(cap: int, c_run: int, tile: int, win: int, n_cols: int) -> tuple:
+    """(rows a block, channels a block, channel splits, threads, shared
+    bytes) of a sel_fwd launch; raises ValueError for shapes the kernel does
+    not take (not cached). A function of the shapes alone; neither split
+    changes a sum's order."""
+    if c_run <= 0 or c_run % 8:
+        raise ValueError(f"sel_fwd: c_run {c_run} is not a multiple of 8")
+    if tile <= 0 or cap % tile or tile % 4:
+        raise ValueError(f"sel_fwd: tile {tile} must be a multiple of 4 "
+                         f"that divides cap {cap}")
+    if win <= 0 or win > cap or n_cols <= 0:
+        raise ValueError(f"sel_fwd: win {win} (cap {cap}), n_cols {n_cols}")
+    vecs = c_run // 8
+    # divisors of the tile that are whole 16-byte anchor loads, largest first
+    cands = [r for r in range(tile, 3, -4) if tile % r == 0]
+    fits = [r for r in cands if r * vecs <= SEL_MAX_ITEMS] or cands[-1:]
+    rows = next((r for r in fits if cap // r >= SEL_MIN_BLOCKS), fits[-1])
+    per = vecs
+    if cap // rows < SEL_MIN_BLOCKS:
+        want = -(-SEL_MIN_BLOCKS // (cap // rows))
+        per = max(-(-vecs // want), min(vecs, SEL_MIN_SPLIT // 8))
+    threads = min(_SEL_THREADS, -(-rows * per // 32) * 32)
+    smem = _sel_smem_bytes(n_cols, rows)
+    if smem > _SEL_SMEM_LIMIT:
+        raise ValueError(f"sel_fwd: {smem} bytes of staged anchors exceed "
+                         f"{_SEL_SMEM_LIMIT}")
+    return rows, per * 8, -(-vecs // per), threads, smem
+
+
+def sel_geometry(cap: int, c_run: int, tile: int, win: int,
+                 n_cols: int = 8) -> dict:
+    """The launch of ``sel_fwd`` at these shapes: grid (row blocks, channel
+    splits), threads, rows and channels a block, dynamic shared memory.
+    Raises ValueError for shapes the kernel does not take: c_run not a
+    multiple of 8 (16-byte row loads), a tile that does not divide cap or is
+    not a multiple of 4 (16-byte anchor loads), a window wider than cap, or
+    more staged anchors than a block's static shared memory holds."""
+    rows, chunk, splits, threads, smem = _sel_plan(cap, c_run, tile, win,
+                                                   n_cols)
+    return {"grid": [cap // rows, splits], "blocks": cap // rows * splits,
+            "threads": threads, "rows_per_block": rows, "chunk": chunk,
+            "splits": splits, "smem_bytes": smem,
+            "items_per_thread": -(-rows * chunk // 8 // threads)}
+
+
+def sel_config(n_cols: int = 8, rows: int = 64, threads: int = 256) -> dict:
+    """The constants compiled into csrc/sel_fwd.cu, its shared memory at
+    (n_cols, rows) and the blocks an SM holds there at ``threads`` threads,
+    from the card's runtime; raises if they differ from this module's copy.
+    Builds and loads the kernel; needs a CUDA device."""
+    cfg = (ctypes.c_int * 5)()
+    rc = cuda_kernels.function(
+        "sel_fwd", "lgs_sel_fwd_config",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int])(
+            ctypes.addressof(cfg), n_cols, rows, threads)
+    if rc != 0:
+        raise RuntimeError(f"sel_fwd occupancy query failed: CUDA error {rc}")
+    keys = ("threads", "min_blocks_per_sm", "smem_limit_bytes",
+            "dynamic_smem_bytes", "blocks_per_sm")
+    out = dict(zip(keys, cfg))
+    want = {"threads": _SEL_THREADS, "min_blocks_per_sm": _SEL_BLOCKS_PER_SM,
+            "smem_limit_bytes": _SEL_SMEM_LIMIT,
+            "dynamic_smem_bytes": _sel_smem_bytes(n_cols, rows)}
+    if any(out[k] != v for k, v in want.items()):
+        raise RuntimeError(f"csrc/sel_fwd.cu constants {out} differ from {want}")
+    return out
+
+
 def sel_fwd(wstart, anchors, mc, pall, n_cols, tile, win):
     """Selector forward; contract as ``sel_fwd_reference``. A CUDA input
-    launches the Hopper kernel (``csrc/sel_fwd.cu``); a CPU input runs the
-    plain version."""
+    launches the Hopper kernel (``csrc/sel_fwd.cu``) or raises (see
+    ``sel_geometry``); a CPU input runs the plain version."""
     if pall.device.type == "cpu":
         return sel_fwd_reference(wstart, anchors, mc, pall, n_cols, tile, win)
     if pall.device.type != "cuda":
         raise ValueError(f"sel_fwd: unsupported device {pall.device}")
     cap, width = pall.shape
     c_run = width // (n_cols + 1)
-    if width != (n_cols + 1) * c_run or c_run % 8:
+    if width != (n_cols + 1) * c_run:
         raise ValueError(f"sel_fwd: P width {width} is not {n_cols + 1} "
-                         "blocks of a multiple of 8 channels")
-    if tile <= 0 or cap % tile or win > cap:
-        raise ValueError(f"sel_fwd: cap {cap}, tile {tile}, win {win}")
+                         "blocks")
+    rows, chunk, _, threads, smem = _sel_plan(cap, c_run, tile, win, n_cols)
     dev = pall.device
     _check(pall, "pall", torch.bfloat16, device=dev)
     _check(anchors, "anchors", torch.int32, (n_cols, cap), dev)
     _check(wstart, "wstart", torch.int32, (cap // tile * n_cols,), dev)
     _check(mc, "mc", torch.uint8, (cap,), dev)
+    for t, name in ((pall, "pall"), (anchors, "anchors")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"sel_fwd: {name} is not 16-byte aligned")
     out = torch.empty((cap, c_run), dtype=torch.float32, device=dev)
+    # the raw stream handle: torch.cuda.current_stream() builds a Stream
+    # object, which costs more host time than a small launch; so does
+    # entering the device's context, needed only when it is not current
+    args = (wstart.data_ptr(), anchors.data_ptr(), mc.data_ptr(),
+            pall.data_ptr(), out.data_ptr(), cap, n_cols, c_run, tile, win,
+            rows, chunk, threads, smem)
     fn = cuda_kernels.function("sel_fwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(wstart.data_ptr(), anchors.data_ptr(), mc.data_ptr(),
-                pall.data_ptr(), out.data_ptr(), cap, n_cols, c_run, tile,
-                win, stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"sel_fwd kernel launch failed: CUDA error {rc}")
     launch_counts["sel_fwd"] += 1

@@ -58,26 +58,94 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _sel_check(args):
+    """One sel_fwd launch equal to its plain version bit for bit (the same
+    adds in the same order), and a second launch equal to the first."""
+    n0 = oc.launch_counts["sel_fwd"]
+    got = oc.sel_fwd(*args)
+    torch.cuda.synchronize()
+    assert oc.launch_counts["sel_fwd"] == n0 + 1
+    assert torch.equal(got, oc.sel_fwd_reference(*args))
+    assert torch.equal(oc.sel_fwd(*args), got)
+    return got
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c_run", [96, 32, 8, 384])
+@pytest.mark.parametrize("c_run", [96, 32, 8, 384, 256])
 def test_sel_fwd_kernel_matches_plain_version(c_run):
+    """A 4,096-row k3 map as the builder makes it, with 10% of the anchors
+    scrambled (the guard cap included) so the window test decides."""
     dev = _card()
     rng, g = _graph(4, 3000, (4096,), down=False)
     m = g.gmaps["k3"].to(dev)
     assert m.tile > 0
     pall = torch.from_numpy(rng.normal(size=(4096, 9 * c_run)).astype(
         np.float32)).to(dev, torch.bfloat16)
-    # scramble 10% of the anchors so the window test decides
     anchors = m.anchors.clone()
     pick = torch.from_numpy(rng.random(tuple(anchors.shape)) < 0.1).to(dev)
     anchors[pick] = torch.randint(0, 4097, (int(pick.sum()),), device=dev,
                                   dtype=torch.int32)
-    args = [m.wstart, anchors, m.mc, pall, 8, m.tile, m.win]
-    n0 = oc.launch_counts["sel_fwd"]
-    got = oc.sel_fwd(*args)
-    torch.cuda.synchronize()
-    assert oc.launch_counts["sel_fwd"] == n0 + 1
-    assert _rel(got, oc.sel_fwd_reference(*args)) <= RTOL
+    _sel_check([m.wstart, anchors, m.mc, pall, 8, m.tile, m.win])
+
+
+def _sel_synthetic(cap, c_run, tile, win, n_cols, dev, seed):
+    """Seeded sel_fwd inputs: window starts anywhere in [0, cap - win],
+    anchors within 3 windows of their row, 5% of them anywhere in [-8,
+    cap + 8] (negative, guard and past-the-table values included), a
+    quarter of the rows with mc = 0."""
+    rng = np.random.default_rng(seed)
+    ws = rng.integers(0, cap - win + 1, size=(cap // tile) * n_cols)
+    a = np.arange(cap)[None, :] + rng.integers(-3 * win, 3 * win + 1,
+                                               size=(n_cols, cap))
+    wild = rng.random(a.shape) < 0.05
+    a = np.where(wild, rng.integers(-8, cap + 9, size=a.shape), a)
+    mc = (rng.random(cap) < 0.75).astype(np.uint8)
+    pall = rng.normal(size=(cap, (n_cols + 1) * c_run)).astype(np.float32)
+    return [torch.from_numpy(ws.astype(np.int32)).to(dev),
+            torch.from_numpy(a.astype(np.int32)).to(dev),
+            torch.from_numpy(mc).to(dev),
+            torch.from_numpy(pall).to(dev, torch.bfloat16), n_cols, tile, win]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,c_run,tile,win,n_cols", [
+    (4096, 256, 256, 512, 8), (4096, 128, 256, 512, 8),
+    (18432, 384, 256, 512, 8), (1024, 384, 256, 512, 8),
+    (8192, 64, 1024, 2048, 8), (16384, 8, 512, 1024, 8),
+    (4096, 96, 256, 512, 4), (2048, 40, 512, 1024, 13)])
+def test_sel_fwd_kernel_scrambled_synthetic(cap, c_run, tile, win, n_cols):
+    """L4's 4,096 rows in 8-row blocks, L3's 18,432 at block5's dX width,
+    a cap small enough to split the channels, the window menu's larger
+    tiles, and the generic path (column counts other than 8); anchors
+    scrambled so the window test, the guard and the bounds check decide."""
+    dev = _card()
+    args = _sel_synthetic(cap, c_run, tile, win, n_cols, dev, seed=cap + c_run)
+    geo = oc.sel_geometry(cap, c_run, tile, win, n_cols)
+    if cap >= 4096:
+        assert geo["blocks"] >= oc.SEL_MIN_BLOCKS
+    got = _sel_check(args)
+    assert got.shape == (cap, c_run)
+    assert bool((got[args[2] == 0] == 0).all())
+    bad = list(args)
+    bad[3] = torch.zeros((cap, (n_cols + 1) * 12), dtype=torch.bfloat16,
+                         device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        oc.sel_fwd(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cols,rows,threads", [(8, 256, 256), (8, 64, 256),
+                                                 (8, 8, 256), (8, 8, 128),
+                                                 (4, 16, 96)])
+def test_sel_config_matches_plan(n_cols, rows, threads):
+    """The constants compiled into csrc/sel_fwd.cu are the wrapper's, its
+    shared memory at the main path's block sizes is the plan's, and at
+    least two blocks share an SM there (SEL_MIN_BLOCKS counts two)."""
+    _card()
+    cfg = oc.sel_config(n_cols, rows, threads)
+    assert cfg["dynamic_smem_bytes"] == oc._sel_smem_bytes(n_cols, rows)
+    assert cfg["threads"] == 256 and cfg["smem_limit_bytes"] == 48 * 1024
+    assert cfg["blocks_per_sm"] >= max(2, cfg["min_blocks_per_sm"])
 
 
 def _csum_case(n_groups, c_run, variant, dev):

@@ -184,7 +184,8 @@ def test_port_imports_no_jax():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "for s in ('bench_onehot_gemm_torch', 'bench_onehot_variants_torch',\n"
-        "          'bench_dw_torch', 'bench_csum_torch', 'profile_torch_forward'):\n"
+        "          'bench_dw_torch', 'bench_csum_torch', 'bench_sel_fwd_torch',\n"
+        "          'profile_torch_forward'):\n"
         "    spec = importlib.util.spec_from_file_location(s, f'scripts/{s}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
