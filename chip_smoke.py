@@ -55,6 +55,10 @@ _HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
                     ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM
 BF16_TC_OPS_PER_S = 989e12  # bf16 dense tensor cores, H100 SXM
+# L2 -> shared-memory fill rate for a gather into a cp.async ring, as the
+# dw kernel's loads-only mode measured it on an H100 SXM (PERF.md §6):
+# the rate behind onehot_variants' second floor, the rows it gathers
+L2_FILL_BYTES_PER_S = 5e12
 
 SCENES, POINTS = 4, 180_000          # the bench.py batch
 # dw in phase kernels: (3C, c_out, k3 map) of block8's convs and conv0 at
@@ -681,13 +685,92 @@ def variants_library(a, tile: int, win: int, n_groups: int):
     return lambda: torch.bmm(stack, a["w"]).float().sum(0)
 
 
+def variants_shape_record(mode: str, a, shapes: dict) -> dict:
+    """The fields of an onehot_variants record that need no card: the
+    shapes, the rows the mode reads, the launch plan
+    (``variants_geometry``), the bytes and operations of the bound, and the
+    bytes the kernel copies from L2 into shared memory: the rows it
+    gathers (cw channels each; a miss copies nothing) and the W chunks
+    every block stages."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    n_cols, cw, c_out = a["w"].shape
+    cap = a["anchors"].shape[1]
+    nbytes, ops, peak, reads = variants_work(
+        mode, a, shapes["tile"], shapes["win"], shapes["n_groups"])
+    geo = oa.variants_geometry(cap, cw, c_out, n_cols)
+    return {
+        "name": "onehot_variants", "mode": mode, **shapes,
+        "rows_read": reads, "variants_geometry": geo,
+        "l2_gather_bytes": 0 if mode == "no_dma" else reads * cw * 2,
+        "l2_w_bytes": (0 if mode == "no_proj"
+                       else geo["blocks"] * n_cols * cw * c_out * 2),
+        "l2_fill_bytes_per_s": L2_FILL_BYTES_PER_S,
+        "library_call": ("torch.bmm(stack, W).float().sum(0) on a "
+                         "pre-gathered (9, cap, cw) bf16 stack: three "
+                         "calls, the gather not timed"
+                         if mode == "full" else None),
+        "bytes": nbytes, "operations": ops, "peak_ops_per_s": peak}
+
+
+def variants_record(mode: str, a, shapes: dict, got, library) -> dict:
+    """onehot_variants in ``mode``: ``got`` (one launch's output) held
+    against the plain version (full: VARIANTS_FULL_RTOL of max |ref|;
+    no_sel, no_proj: ABLATION_RTOL; no_dma: exactly zero), a second launch
+    bit-equal to it, then timed beside the plain version and, for full, the
+    library calls (``library``): per call with its host time (``ms``) and
+    back to back on the device (``device_ms``); with the launch plan, the
+    compiled constants and blocks an SM holds (``variants_config``), what
+    ptxas reported for the mode's kernel, and the L2 gather floor."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    args = [a["wstart"], a["anchors"], a["t3"], a["w"], shapes["tile"],
+            shapes["win"], shapes["n_groups"]]
+    name = f"onehot_variants {mode}"
+    if mode == "no_dma":
+        torch.cuda.synchronize()
+        if bool(got.any()):
+            raise AssertionError(f"{name}: non-zero output")
+        err, scale = 0.0, 0.0
+    else:
+        rtol = VARIANTS_FULL_RTOL if mode == "full" else ABLATION_RTOL
+        err, scale = _hold(name, got, oa.onehot_variants_reference(mode, *args),
+                           rtol)
+    if not torch.equal(oa.onehot_variants(mode, *args), got):
+        raise AssertionError(f"{name}: a second launch differs from the first")
+    rec = variants_shape_record(mode, a, shapes)
+    n_cols, _, c_out = a["w"].shape
+    cfg = oa.variants_config(c_out, n_cols)
+    nb = c_out // 16
+
+    def kernel():
+        oa.onehot_variants(mode, *args)
+
+    rec.update({
+        "config": cfg, "blocks_per_sm": cfg["blocks_per_sm"],
+        "ptxas": cuda_kernels.ptxas_usage(
+            "onehot_variants",
+            f"onehot_variants_kernelILi{oa.MODES.index(mode)}ELi{nb}E"),
+        "max_abs_err": err, "max_abs_ref": scale, "bit_equal_relaunch": True,
+        "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+        "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+        "plain_ms": cuda_ms(lambda: oa.onehot_variants_reference(mode, *args),
+                            TIMED_KERNEL_RUNS),
+        "library_ms": (cuda_ms(library, TIMED_KERNEL_RUNS)
+                       if mode == "full" else None),
+        "l2_floor_ms": 1e3 * rec["l2_gather_bytes"] / L2_FILL_BYTES_PER_S})
+    return rec
+
+
 def phase_ablation(bw: float) -> dict:
     """The one-hot ablation kernels at their microbenchmarks' full shapes
     and seeds (those of scripts/bench_onehot_gemm_torch.py and
     scripts/bench_onehot_variants_torch.py): one onehot_gemm launch and one
     onehot_variants launch per mode, with the ablation launch counts set to
     0 just before and read just after; then each output held against its
-    plain version and the kernel, plain and library calls timed."""
+    plain version, a second variants launch bit-equal to the first, and the
+    kernel, plain and library calls timed (``variants_record``)."""
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
 
     gs, vs = oa.GEMM_SHAPES, oa.VARIANTS_SHAPES
@@ -730,32 +813,8 @@ def phase_ablation(bw: float) -> dict:
 
     library = variants_library(v, *vgeo)
     for mode in oa.MODES:
-        got = outs.pop(mode)
-        if mode == "no_dma":
-            if bool(got.any()):
-                raise AssertionError("onehot_variants no_dma: non-zero output")
-            err, scale = 0.0, 0.0
-        else:
-            rtol = VARIANTS_FULL_RTOL if mode == "full" else ABLATION_RTOL
-            err, scale = _hold(f"onehot_variants {mode}", got,
-                               oa.onehot_variants_reference(mode, *vargs),
-                               rtol)
-        nbytes, ops, peak, reads = variants_work(mode, v, *vgeo)
-        results[("onehot_variants", mode)] = {
-            "name": "onehot_variants", "mode": mode, **vs, "rows_read": reads,
-            "max_abs_err": err, "max_abs_ref": scale,
-            "ms": cuda_ms(lambda: oa.onehot_variants(mode, *vargs),
-                          TIMED_KERNEL_RUNS),
-            "plain_ms": cuda_ms(
-                lambda: oa.onehot_variants_reference(mode, *vargs),
-                TIMED_KERNEL_RUNS),
-            "library_ms": (cuda_ms(library, TIMED_KERNEL_RUNS)
-                           if mode == "full" else None),
-            "library_call": ("torch.bmm(stack, W).float().sum(0) on a "
-                             "pre-gathered (9, cap, cw) bf16 stack: three "
-                             "calls, the gather not timed"
-                             if mode == "full" else None),
-            "bytes": nbytes, "operations": ops, "peak_ops_per_s": peak}
+        results[("onehot_variants", mode)] = variants_record(
+            mode, v, vs, outs.pop(mode), library)
     del library, v, vargs
     torch.cuda.empty_cache()
     for rec in results.values():
@@ -763,7 +822,10 @@ def phase_ablation(bw: float) -> dict:
         emit({"phase": "ablation", **rec})
     emit({"phase": "ablation", "launches": launches,
           "variants_ms_by_mode": {m: results[("onehot_variants", m)]["ms"]
-                                  for m in oa.MODES}})
+                                  for m in oa.MODES},
+          "variants_device_ms_by_mode": {
+              m: results[("onehot_variants", m)]["device_ms"]
+              for m in oa.MODES}})
     results["launches"] = launches
     return results
 

@@ -21,6 +21,8 @@ module's ``launch_counts``, apart from ``onehot_conv.launch_counts``.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -50,6 +52,10 @@ MODES = ("full", "no_dma", "no_sel", "no_proj")
 # output widths the kernels are built for: the scripts' 96 and the card
 # tests' 16 and 32 (csrc/onehot_gemm.cu, csrc/onehot_variants.cu)
 KERNEL_C_OUT = (16, 32, 96)
+
+# csrc/onehot_variants.cu's launch constants: output rows a block, channels
+# a step, ring stages, threads (16 warps), most columns
+_V_BM, _V_BK, _V_STAGES, _V_THREADS, _V_MAX_COLS = 256, 32, 4, 512, 16
 
 
 def reset_launch_counts() -> None:
@@ -219,10 +225,81 @@ def onehot_variants_reference(mode, wstart, anchors, t3, w, tile, win,
     return out
 
 
+def _variants_smem_bytes(c_out: int, n_cols: int) -> int:
+    """csrc/onehot_variants.cu's smem_bytes: the ring's t3 and W stages
+    (bf16, rows padded by 8), the running sum (f32, rows padded by 8) and
+    the resolved rows (int32 a column and row)."""
+    ring = _V_STAGES * (_V_BM * (_V_BK + 8) + _V_BK * (c_out + 8)) * 2
+    return ring + _V_BM * (c_out + 8) * 4 + n_cols * _V_BM * 4
+
+
+def variants_geometry(cap: int, cw: int, c_out: int, n_cols: int) -> dict:
+    """The launch of ``onehot_variants`` at these shapes: one block of 256
+    output rows (16 warps) per grid entry, the last one ragged; each warp's
+    tile; the (column, 32-channel chunk) steps each block walks; ring
+    stages; dynamic shared memory (at most 227 KB: the kernel source
+    asserts it for the widest plan). Raises ValueError for shapes the
+    kernel does not take:
+    c_out other than 16, 32 or 96 (the widths built) or above cw, cw not a
+    positive multiple of 8 (16-byte copies), n_cols not 3, 6, .. 15 (three
+    columns a group, at most 16), a cap below 1."""
+    if c_out not in KERNEL_C_OUT:
+        raise ValueError(f"onehot_variants: c_out {c_out} is not one of "
+                         f"{KERNEL_C_OUT}")
+    if cw <= 0 or cw % 8 or c_out > cw:
+        raise ValueError(f"onehot_variants: cw {cw} must be a multiple of 8 "
+                         f"and at least c_out {c_out}")
+    if (n_cols <= 0 or n_cols % COLS_PER_GROUP or n_cols > _V_MAX_COLS):
+        raise ValueError(f"onehot_variants: {n_cols} weight columns (3 per "
+                         f"group, at most {_V_MAX_COLS})")
+    if cap <= 0:
+        raise ValueError(f"onehot_variants: cap {cap}")
+    blocks = -(-cap // _V_BM)
+    chunks = -(-cw // _V_BK)
+    # csrc/onehot_variants.cu's Tiling: 8 x 2 warps for an even number of
+    # 16-column blocks, else 16 x 1
+    warps_n = 2 if (c_out // 16) % 2 == 0 else 1
+    return {"grid": [blocks], "blocks": blocks, "threads": _V_THREADS,
+            "rows_per_block": _V_BM,
+            "warp_tile": [_V_BM * warps_n // (_V_THREADS // 32),
+                          c_out // warps_n],
+            "channels_per_step": _V_BK, "steps": n_cols * chunks,
+            "stages": _V_STAGES,
+            "smem_bytes": _variants_smem_bytes(c_out, n_cols)}
+
+
+def variants_config(c_out: int = 96, n_cols: int = 9) -> dict:
+    """The constants compiled into csrc/onehot_variants.cu, its shared
+    memory at (c_out, n_cols) and the blocks an SM holds there, from the
+    card's runtime (the defaults are the ablation script's); raises if they
+    differ from this module's copy. Builds and loads the kernel; needs a
+    CUDA device."""
+    cfg = (ctypes.c_int * 7)()
+    rc = cuda_kernels.function(
+        "onehot_variants", "lgs_onehot_variants_config",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])(
+            ctypes.addressof(cfg), c_out, n_cols)
+    if rc != 0:
+        raise RuntimeError(
+            f"onehot_variants occupancy query failed: CUDA error {rc}")
+    keys = ("rows_per_block", "channels_per_step", "stages", "threads",
+            "max_cols", "dynamic_smem_bytes", "blocks_per_sm")
+    out = dict(zip(keys, cfg))
+    want = {"rows_per_block": _V_BM, "channels_per_step": _V_BK,
+            "stages": _V_STAGES, "threads": _V_THREADS,
+            "max_cols": _V_MAX_COLS,
+            "dynamic_smem_bytes": _variants_smem_bytes(c_out, n_cols)}
+    if any(out[k] != v for k, v in want.items()):
+        raise RuntimeError(f"csrc/onehot_variants.cu constants {out} differ "
+                           f"from {want}")
+    return out
+
+
 def onehot_variants(mode, wstart, anchors, t3, w, tile, win, n_groups):
     """The nine-column gather-GEMM in one of ``MODES``; contract as
     ``onehot_variants_reference``. A CUDA input launches the Hopper kernel
-    (``csrc/onehot_variants.cu``); a CPU input runs the plain version."""
+    (``csrc/onehot_variants.cu``) or raises (see ``variants_geometry``); a
+    CPU input runs the plain version."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if t3.device.type == "cpu":
@@ -233,13 +310,10 @@ def onehot_variants(mode, wstart, anchors, t3, w, tile, win, n_groups):
     n_arows, cap = anchors.shape
     n_rows, cw = t3.shape
     n_cols, _, c_out = w.shape
-    if cw % 8 or c_out not in KERNEL_C_OUT or c_out > cw:
-        raise ValueError(f"onehot_variants: cw {cw} must be a multiple of 8 "
-                         f"and c_out {c_out} one of {KERNEL_C_OUT}, at most "
-                         "cw")
-    if n_cols != COLS_PER_GROUP * n_groups or n_cols > 16:
+    variants_geometry(cap, cw, c_out, n_cols)
+    if n_cols != COLS_PER_GROUP * n_groups:
         raise ValueError(f"onehot_variants: {n_cols} weight columns for "
-                         f"{n_groups} groups (3 per group, at most 16)")
+                         f"{n_groups} groups (3 per group)")
     if tile <= 0 or cap % tile or not tile <= win:
         raise ValueError(f"onehot_variants: cap {cap}, tile {tile}, win {win}")
     dev = t3.device
@@ -247,13 +321,21 @@ def onehot_variants(mode, wstart, anchors, t3, w, tile, win, n_groups):
     _check(w, "w", torch.bfloat16, (n_cols, cw, c_out), dev)
     _check(anchors, "anchors", torch.int32, (n_arows, cap), dev)
     _check(wstart, "wstart", torch.int32, (cap // tile * n_groups,), dev)
+    for t, name in ((t3, "t3"), (w, "w")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"onehot_variants: {name} is not 16-byte aligned")
     out = torch.empty((cap, c_out), dtype=torch.float32, device=dev)
+    args = (wstart.data_ptr(), anchors.data_ptr(), t3.data_ptr(),
+            w.data_ptr(), out.data_ptr(), MODES.index(mode), cap, n_rows, cw,
+            c_out, tile, win, n_groups, n_arows)
     fn = cuda_kernels.function("onehot_variants")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(wstart.data_ptr(), anchors.data_ptr(), t3.data_ptr(),
-                w.data_ptr(), out.data_ptr(), MODES.index(mode), cap, n_rows,
-                cw, c_out, tile, win, n_groups, n_arows, stream)
+    # the raw stream handle, as sel_fwd passes it; the device's context is
+    # entered only when the tensor is not on the current device
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(
             f"onehot_variants kernel launch failed: CUDA error {rc}")

@@ -15,12 +15,18 @@ row, three 1536-row windows per 1024-row tile) and runs the
     no_sel  : contiguous window rows instead of the anchored gather
     no_proj : the gathered channels added instead of the projection
 
-Prints the card's name and power limit, then per mode a correctness line
-against the plain PyTorch version (max abs error and max |ref|; full is
-held to 1e-2 of max |ref|, no_sel and no_proj to 1e-5, no_dma must be all
-zeros) and the kernel's ms (CUDA events, median of 20). ``--cpu``
-runs the plain version at CAP = 2048 and prints each mode's max |out|: a
-CPU run gives no device time.
+On the card (``chip_smoke.variants_record``) each mode is held to the plain
+PyTorch version (full to 1e-2 of max |ref|, no_sel and no_proj to 1e-5,
+no_dma all zeros), a second launch must be bit-equal, and the kernel, the
+plain version and, for full, the library calls (``torch.bmm`` on a
+pre-gathered stack) are timed: ``ms`` per call with the host's time and
+``device_ms`` back to back on the device (CUDA events, median of 20 /
+mean of 20). Prints the card's name and power limit, the compiled
+constants (``variants_config``) and ptxas usage of every mode's kernel,
+then one JSON line per mode with its launch plan (``variants_geometry``),
+bound, and L2 gather floor (the rows it gathers over
+``chip_smoke.L2_FILL_BYTES_PER_S``). ``--cpu`` runs the plain version at
+CAP = 2048 with null device fields: a CPU run gives no device time.
 """
 
 from __future__ import annotations
@@ -35,8 +41,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CPU_SHAPES = dict(cap=2048, tile=256, win=384, n_groups=3, cw=384, c_out=96)
-FULL_RTOL, RTOL = 1e-2, 1e-5
-RUNS = 20  # CUDA-event timed calls per median
+# the fields a record gets only from the card (null under --cpu)
+CARD_FIELDS = ("config", "blocks_per_sm", "ptxas", "max_abs_err",
+               "max_abs_ref", "bit_equal_relaunch", "ms", "device_ms",
+               "plain_ms", "library_ms", "l2_floor_ms", "bound_ms",
+               "bound_by")
 
 
 def main() -> int:
@@ -44,6 +53,8 @@ def main() -> int:
     ap.add_argument("--cpu", action="store_true",
                     help="plain version at a small size, no timing")
     args = ap.parse_args()
+    import chip_smoke as cs
+    from languagegroundedsemseg_torch.ops import cuda_kernels
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
 
     if args.cpu:
@@ -53,34 +64,46 @@ def main() -> int:
               "plain version)", file=sys.stderr)
         return 1
     else:
-        from chip_smoke import cuda_ms
-
         shapes, device = oa.VARIANTS_SHAPES, "cuda"
         torch.backends.cuda.matmul.allow_tf32 = False
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"],
-            check=True, capture_output=True, text=True).stdout.strip())
+            check=True, capture_output=True, text=True).stdout.strip(),
+            flush=True)
+        bw = cs.hbm_bytes_per_s(torch.cuda.get_device_name(0))
+        cuda_kernels.build()
+        nb = shapes["c_out"] // 16
+        cs.emit({"variants_config": oa.variants_config(
+                     shapes["c_out"], 3 * shapes["n_groups"]),
+                 "ptxas": {m: cuda_kernels.ptxas_usage(
+                     "onehot_variants",
+                     f"onehot_variants_kernelILi{i}ELi{nb}E")
+                     for i, m in enumerate(oa.MODES)}})
     a = oa.variants_inputs(**shapes, seed=0, device=device)
     call = [a["wstart"], a["anchors"], a["t3"], a["w"], shapes["tile"],
             shapes["win"], shapes["n_groups"]]
-    ok = True
+    library = None if args.cpu else cs.variants_library(
+        a, shapes["tile"], shapes["win"], shapes["n_groups"])
+    by_mode = {}
     for mode in oa.MODES:
         out = oa.onehot_variants(mode, *call)
         if args.cpu:
-            print(f"{mode:8s}: plain version, max |out| "
-                  f"{float(out.abs().max()):.4e}")
-            continue
-        ref = oa.onehot_variants_reference(mode, *call)
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        held = err <= (FULL_RTOL if mode == "full" else RTOL) * scale
-        ok &= held
-        print(f"{mode:8s}: vs plain version max abs err {err:.3e} "
-              f"(max |ref| {scale:.3e}) {'ok' if held else 'FAIL'}")
-        t = cuda_ms(lambda: oa.onehot_variants(mode, *call), RUNS)
-        print(f"{mode:8s}: {t:7.3f} ms")
-    return 0 if ok else 1
+            if out.shape != (shapes["cap"], shapes["c_out"]) or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"onehot_variants {mode}: "
+                                     f"{tuple(out.shape)}")
+            rec = {**cs.variants_shape_record(mode, a, shapes),
+                   **{k: None for k in CARD_FIELDS},
+                   "max_abs_out": float(out.abs().max())}
+        else:
+            rec = cs.variants_record(mode, a, shapes, out, library)
+            cs._bound(rec, bw)
+        by_mode[mode] = {k: rec[k] for k in ("ms", "device_ms", "bound_ms",
+                                             "l2_floor_ms")}
+        cs.emit(rec)
+    cs.emit({"by_mode": by_mode, "device": device})
+    return 0
 
 
 if __name__ == "__main__":

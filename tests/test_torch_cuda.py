@@ -381,6 +381,25 @@ def test_onehot_gemm_kernel_matches_plain_version(n, tile, win, cw, c_out):
     assert bool((got[~hit] == 0).all())
 
 
+def _variants_check(mode, args):
+    """One onehot_variants launch against its plain version (full: 1e-2 of
+    max |ref|; no_sel, no_proj: 1e-5; no_dma exactly zero) and a second
+    launch bit-equal to the first (a fixed sum order)."""
+    cap, c_out = args[1].shape[1], args[3].shape[2]
+    n0 = oa.launch_counts["onehot_variants"]
+    got = oa.onehot_variants(mode, *args)
+    torch.cuda.synchronize()
+    assert oa.launch_counts["onehot_variants"] == n0 + 1
+    assert got.shape == (cap, c_out)
+    assert torch.equal(oa.onehot_variants(mode, *args), got)
+    want = oa.onehot_variants_reference(mode, *args)
+    if mode == "no_dma" or not bool(want.any()):
+        assert bool((got == 0).all()) and not bool(want.any())
+        return got
+    assert _rel(got, want) <= (VARIANTS_FULL_RTOL if mode == "full" else RTOL)
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", oa.MODES)
 @pytest.mark.parametrize("cap,tile,win,cw,c_out", [
@@ -388,25 +407,66 @@ def test_onehot_gemm_kernel_matches_plain_version(n, tile, win, cw, c_out):
     (3072, 1024, 1536, 384, 96)])
 def test_onehot_variants_kernel_matches_plain_version(mode, cap, tile, win,
                                                       cw, c_out):
-    """All four modes; a cap that is not a multiple of the block's 128 rows
-    and a cw that leaves a ragged 64-channel chunk. full rounds each
+    """All four modes; a cap that is not a multiple of the block's 256 rows
+    and a cw that leaves a ragged 32-channel chunk. full rounds each
     column's product to bf16, which a different sum order can flip by one
     unit: 1e-2 of max |ref| (trouble spot of the contract); the other
-    modes sum the same values in f32: 1e-5; no_dma is exactly zero."""
+    modes sum the same values in f32: 1e-5; no_dma is exactly zero. A
+    second launch is bit-equal to the first."""
     dev = _card()
     a = oa.variants_inputs(cap, tile, win, 3, cw, c_out, seed=cap,
                            device=dev)
-    args = [a["wstart"], a["anchors"], a["t3"], a["w"], tile, win, 3]
-    n0 = oa.launch_counts["onehot_variants"]
-    got = oa.onehot_variants(mode, *args)
-    torch.cuda.synchronize()
-    assert oa.launch_counts["onehot_variants"] == n0 + 1
-    assert got.shape == (cap, c_out)
-    if mode == "no_dma":
-        assert bool((got == 0).all())
-        return
-    want = oa.onehot_variants_reference(mode, *args)
-    assert _rel(got, want) <= (VARIANTS_FULL_RTOL if mode == "full" else RTOL)
+    _variants_check(mode, [a["wstart"], a["anchors"], a["t3"], a["w"], tile,
+                           win, 3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", oa.MODES)
+@pytest.mark.parametrize("cap,tile,win,n_groups,cw,c_out", [
+    (2048, 256, 384, 3, 64, 16), (4097, 241, 384, 3, 96, 32),
+    (2048, 512, 768, 1, 136, 96), (3072, 512, 768, 5, 128, 96)])
+def test_onehot_variants_kernel_other_shapes(mode, cap, tile, win, n_groups,
+                                             cw, c_out):
+    """c_out 16; a cap ragged by one row past 16 blocks (4,097 = 17 x 241
+    tiles); one group (3 columns, each its own anchor row) and five (15
+    columns, the last eight sharing anchor row 7); bit-equal relaunch."""
+    dev = _card()
+    a = oa.variants_inputs(cap, tile, win, n_groups, cw, c_out, seed=cap + cw,
+                           device=dev)
+    geo = oa.variants_geometry(cap, cw, c_out, 3 * n_groups)
+    assert (geo["blocks"] - 1) * geo["rows_per_block"] < cap
+    _variants_check(mode, [a["wstart"], a["anchors"], a["t3"], a["w"], tile,
+                           win, n_groups])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "no_proj"])
+def test_onehot_variants_all_out_of_window_gives_zeros(mode):
+    """Every window starts past the table, so no anchor is in one: every
+    copy takes the zero-fill form and the output is exactly 0."""
+    dev = _card()
+    cap, tile, win = 2048, 256, 384
+    a = oa.variants_inputs(cap, tile, win, 3, 128, 96, seed=5, device=dev)
+    ws = torch.full_like(a["wstart"], cap + win)
+    got = _variants_check(mode, [ws, a["anchors"], a["t3"], a["w"], tile, win,
+                                 3])
+    assert bool((got == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_out,n_cols", [(96, 9), (96, 15), (32, 9),
+                                          (16, 3)])
+def test_variants_config_matches_geometry(c_out, n_cols):
+    """The constants compiled into csrc/onehot_variants.cu are the
+    wrapper's, its shared memory is the plan's, and a block fits an SM."""
+    _card()
+    cfg = oa.variants_config(c_out, n_cols)
+    geo = oa.variants_geometry(4096, 384, c_out, n_cols)
+    assert cfg["dynamic_smem_bytes"] == geo["smem_bytes"]
+    assert cfg["threads"] == geo["threads"]
+    assert cfg["rows_per_block"] == geo["rows_per_block"]
+    assert cfg["stages"] == geo["stages"] >= 3
+    assert cfg["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
