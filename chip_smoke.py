@@ -59,6 +59,11 @@ BF16_TC_OPS_PER_S = 989e12  # bf16 dense tensor cores, H100 SXM
 # dw kernel's loads-only mode measured it on an H100 SXM (PERF.md §6):
 # the rate behind onehot_variants' second floor, the rows it gathers
 L2_FILL_BYTES_PER_S = 5e12
+# onehot_gemm's f32 W times bf16 t3, the fastest exact route on this card:
+# W split into three bf16 parts, three bf16 tensor-core products
+# (csrc/onehot_gemm.cu), so a third of the bf16 rate
+GEMM_ARITHMETIC = "f32 x bf16 as three exact bf16 tensor-core products"
+GEMM_OPS_PER_S = BF16_TC_OPS_PER_S / 3
 
 SCENES, POINTS = 4, 180_000          # the bench.py batch
 # dw in phase kernels: (3C, c_out, k3 map) of block8's convs and conv0 at
@@ -634,6 +639,110 @@ def gemm_work(a, tile: int, win: int) -> tuple:
     return nbytes, 2 * hits * cw * c_out, hits
 
 
+def gemm_shape_record(a, shapes: dict) -> dict:
+    """The fields of an onehot_gemm record that need no card: the shapes,
+    the in-window rows, the launch plan (``gemm_geometry``), the bytes and
+    operations of the bound (the operations at the rate of three bf16
+    tensor-core products, ``GEMM_ARITHMETIC``), and the bytes the kernel
+    copies from L2 into shared memory: the rows it gathers (cw f32
+    channels each; a miss copies nothing) and W's three parts every block
+    stages."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    n, tile, win = shapes["n"], shapes["b"], shapes["w"]
+    cw, c_out = shapes["cw"], shapes["c_out"]
+    nbytes, ops, hits = gemm_work(a, tile, win)
+    geo = oa.gemm_geometry(n, cw, c_out)
+    return {
+        "name": "onehot_gemm", "n": n, "tile": tile, "win": win, "cw": cw,
+        "c_out": c_out, "in_window_rows": hits, "gemm_geometry": geo,
+        "l2_gather_bytes": hits * cw * 4,
+        "l2_w_bytes": geo["blocks"] * 3 * geo["cw_pad"] * c_out * 2,
+        "l2_fill_bytes_per_s": L2_FILL_BYTES_PER_S,
+        "arithmetic": GEMM_ARITHMETIC,
+        "library_call": ("t3.index_select(0, anchors) @ W (f32, TF32 off): "
+                         "two calls, no bf16 rounding of t3 and no window "
+                         "test (every anchor of the script is in window)"),
+        "bytes": nbytes, "operations": ops, "peak_ops_per_s": GEMM_OPS_PER_S}
+
+
+def gemm_times(a, shapes: dict, got) -> dict:
+    """onehot_gemm: ``got`` (one launch's output) held against the plain
+    version (ABLATION_RTOL of max |ref|), a second launch bit-equal to it,
+    then the kernel timed per call with its host time (``ms``), back to
+    back on the device (``device_ms``) and on the host alone, no sync
+    (``host_ms``: the wrapper's checks, allocations and two launches),
+    and on the device with every row out of its window
+    (``no_gather_device_ms``: the gather taken out), beside the plain
+    version and the library's two calls. Uses only the wrapper's call, so
+    it also times another checkout's kernel
+    (``scripts/bench_onehot_gemm_torch.py --root``)."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    args = [a["wstart"], a["anchors"], a["t3"], a["w"], shapes["b"],
+            shapes["w"]]
+    err, scale = _hold("onehot_gemm", got, oa.onehot_gemm_reference(*args),
+                       ABLATION_RTOL)
+    if not torch.equal(oa.onehot_gemm(*args), got):
+        raise AssertionError("onehot_gemm: a second launch differs from the "
+                             "first")
+    a_long = a["anchors"].long()
+    # every window moved past the table: the same launch with no row in its
+    # window, so every row copy zero-fills and gathers nothing, while W's
+    # staging, the products and the stores all run
+    miss = [torch.full_like(a["wstart"], a["t3"].shape[0] + shapes["w"]),
+            *args[1:]]
+
+    def kernel():
+        oa.onehot_gemm(*args)
+
+    return {
+        "max_abs_err": err, "max_abs_ref": scale, "bit_equal_relaunch": True,
+        "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+        "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+        "host_ms": host_ms(kernel, TIMED_KERNEL_RUNS),
+        "no_gather_device_ms": queued_ms(lambda: oa.onehot_gemm(*miss),
+                                         TIMED_KERNEL_RUNS),
+        "plain_ms": cuda_ms(lambda: oa.onehot_gemm_reference(*args),
+                            TIMED_KERNEL_RUNS),
+        "library_ms": cuda_ms(lambda: a["t3"].index_select(0, a_long)
+                              @ a["w"], TIMED_KERNEL_RUNS)}
+
+
+def gemm_record(a, shapes: dict, got) -> dict:
+    """The full onehot_gemm record: ``gemm_shape_record`` and
+    ``gemm_times``, the prepass's three parts bit-equal to the plain split
+    (``split_bf16x3``, zero rows past cw), the compiled constants and
+    blocks an SM holds (``gemm_config``), what ptxas reported for the
+    product and the prepass, the L2 gather floor (the gathered rows over
+    ``L2_FILL_BYTES_PER_S``) and the f32 CUDA-core time of the same
+    operations (the bound before the split)."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+
+    rec = gemm_shape_record(a, shapes)
+    rec.update(gemm_times(a, shapes, got))
+    cw = shapes["cw"]
+    want = torch.zeros(rec["gemm_geometry"]["split_shape"],
+                       dtype=torch.bfloat16, device=a["w"].device)
+    want[:, :cw] = oa.split_bf16x3(a["w"])
+    if not torch.equal(oa.gemm_split(a["w"]), want):
+        raise AssertionError("onehot_gemm: the prepass's parts differ from "
+                             "split_bf16x3")
+    cfg = oa.gemm_config(shapes["c_out"])
+    rec.update({
+        "config": cfg, "blocks_per_sm": cfg["blocks_per_sm"],
+        "ptxas": {"product": cuda_kernels.ptxas_usage(
+                      "onehot_gemm",
+                      f"onehot_gemm_kernelILi{shapes['c_out'] // 16}E"),
+                  "split": cuda_kernels.ptxas_usage(
+                      "onehot_gemm", "split_bf16x3_kernel")},
+        "split_bit_equal": True,
+        "l2_floor_ms": 1e3 * rec["l2_gather_bytes"] / L2_FILL_BYTES_PER_S,
+        "f32_cuda_core_ms": 1e3 * rec["operations"] / F32_OPS_PER_S})
+    return rec
+
+
 def variants_work(mode: str, a, tile: int, win: int, n_groups: int) -> tuple:
     """(bytes, operations, peak rate, rows read) of one onehot_variants
     mode on these inputs. Each distinct t3 row the mode reads is counted
@@ -769,8 +878,9 @@ def phase_ablation(bw: float) -> dict:
     scripts/bench_onehot_variants_torch.py): one onehot_gemm launch and one
     onehot_variants launch per mode, with the ablation launch counts set to
     0 just before and read just after; then each output held against its
-    plain version, a second variants launch bit-equal to the first, and the
-    kernel, plain and library calls timed (``variants_record``)."""
+    plain version, a second launch of each bit-equal to the first, and the
+    kernel, plain and library calls timed (``gemm_record``,
+    ``variants_record``)."""
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
 
     gs, vs = oa.GEMM_SHAPES, oa.VARIANTS_SHAPES
@@ -790,26 +900,8 @@ def phase_ablation(bw: float) -> dict:
     if launches != want:
         raise AssertionError(f"ablation launches {launches}, expected {want}")
 
-    results = {}
-    err, scale = _hold("onehot_gemm", outs["onehot_gemm"],
-                       oa.onehot_gemm_reference(*gargs), ABLATION_RTOL)
-    nbytes, ops, hits = gemm_work(g, gs["b"], gs["w"])
-    a_long = g["anchors"].long()
-    results["onehot_gemm"] = {
-        "name": "onehot_gemm", "n": gs["n"], "tile": gs["b"],
-        "win": gs["w"], "cw": gs["cw"], "c_out": gs["c_out"],
-        "in_window_rows": hits,
-        "max_abs_err": err, "max_abs_ref": scale,
-        "ms": cuda_ms(lambda: oa.onehot_gemm(*gargs), TIMED_KERNEL_RUNS),
-        "plain_ms": cuda_ms(lambda: oa.onehot_gemm_reference(*gargs),
-                            TIMED_KERNEL_RUNS),
-        "library_ms": cuda_ms(lambda: g["t3"].index_select(0, a_long) @ g["w"],
-                              TIMED_KERNEL_RUNS),
-        "library_call": ("t3.index_select(0, anchors) @ W (f32, TF32 off): "
-                         "two calls, no bf16 rounding of t3 and no window "
-                         "test (every anchor of the script is in window)"),
-        "bytes": nbytes, "operations": ops, "peak_ops_per_s": F32_OPS_PER_S}
-    del outs["onehot_gemm"], g, gargs, a_long
+    results = {"onehot_gemm": gemm_record(g, gs, outs.pop("onehot_gemm"))}
+    del g, gargs
 
     library = variants_library(v, *vgeo)
     for mode in oa.MODES:

@@ -35,7 +35,7 @@ KERNELS = {
     "csum": ("csum.cu", "lgs_csum", [_vp] * 4 + [_i] * 8 + [_vp]),
     "dw": ("dw.cu", "lgs_dw", [_vp] * 6 + [_i] * 8 + [_vp]),
     "onehot_gemm": ("onehot_gemm.cu", "lgs_onehot_gemm",
-                    [_vp] * 5 + [_i] * 6 + [_vp]),
+                    [_vp] * 6 + [_i] * 6 + [_vp]),
     "onehot_variants": ("onehot_variants.cu", "lgs_onehot_variants",
                         [_vp] * 5 + [_i] * 9 + [_vp]),
 }

@@ -53,6 +53,10 @@ MODES = ("full", "no_dma", "no_sel", "no_proj")
 # tests' 16 and 32 (csrc/onehot_gemm.cu, csrc/onehot_variants.cu)
 KERNEL_C_OUT = (16, 32, 96)
 
+# csrc/onehot_gemm.cu's launch constants: output rows a block, channels a
+# step, ring stages, threads (8 warps), bf16 parts of W, prepass threads
+_G_BM, _G_BK, _G_STAGES, _G_THREADS, _G_PARTS, _G_SPLIT_THREADS = (
+    256, 32, 4, 256, 3, 256)
 # csrc/onehot_variants.cu's launch constants: output rows a block, channels
 # a step, ring stages, threads (16 warps), most columns
 _V_BM, _V_BK, _V_STAGES, _V_THREADS, _V_MAX_COLS = 256, 32, 4, 512, 16
@@ -111,10 +115,127 @@ def onehot_gemm_reference(wstart, anchors, t3, w, tile, win):
     return g @ w
 
 
+def split_bf16x3(w):
+    """W f32 split into three bf16 parts, (3, cw, c_out): Wh = bf16(W), Wm =
+    bf16(W - Wh), Wl = bf16(W - Wh - Wm), each rounded to nearest, the
+    residuals exact f32 differences. Wh + Wm + Wl == W exactly for every
+    finite W with 2^-110 <= |W| < 2^127 (2 - 2^-8), or W = 0. The plain
+    version of the prepass of ``csrc/onehot_gemm.cu``, for tests and the
+    card's check of that prepass; no path calls it."""
+    h = w.to(torch.bfloat16)
+    r1 = w - h.to(torch.float32)
+    m = r1.to(torch.bfloat16)
+    low = (r1 - m.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([h, m, low])
+
+
+def _gemm_smem_bytes(c_out: int) -> int:
+    """csrc/onehot_gemm.cu's smem_bytes: the ring's f32 t3 stages
+    (unpadded, chunks swizzled) and the three W parts' stages (bf16, rows
+    padded by 8), and the resolved rows (int32 a row)."""
+    return (_G_STAGES * (_G_BM * _G_BK * 4
+                         + _G_PARTS * _G_BK * (c_out + 8) * 2)
+            + _G_BM * 4)
+
+
+def gemm_geometry(n: int, cw: int, c_out: int) -> dict:
+    """The launch of ``onehot_gemm`` at these shapes: the prepass (one
+    thread per element of the (3, cw_pad, c_out) split, cw_pad = cw rounded
+    up to 32), then one block of 256 output rows (8 warps) per grid entry,
+    the last one ragged; each warp's tile; the 32-channel steps each block
+    walks; ring stages; dynamic shared memory (at most 227 KB: the kernel
+    source asserts it). Raises ValueError for shapes the kernel does not
+    take: c_out other than 16, 32 or 96 (the widths built), cw not a
+    positive multiple of 4 (16-byte copies of f32 rows), n below 1."""
+    if c_out not in KERNEL_C_OUT:
+        raise ValueError(f"onehot_gemm: c_out {c_out} is not one of "
+                         f"{KERNEL_C_OUT}")
+    if cw <= 0 or cw % 4:
+        raise ValueError(f"onehot_gemm: cw {cw} must be a positive multiple "
+                         "of 4")
+    if n <= 0:
+        raise ValueError(f"onehot_gemm: n {n}")
+    blocks = -(-n // _G_BM)
+    cw_pad = -(-cw // _G_BK) * _G_BK
+    split_blocks = -(-cw_pad * c_out // _G_SPLIT_THREADS)
+    # csrc/onehot_gemm.cu's Tiling: 4 x 2 warps for an even number of
+    # 16-column blocks, else 8 x 1
+    warps_n = 2 if (c_out // 16) % 2 == 0 else 1
+    return {"grid": [blocks], "blocks": blocks, "threads": _G_THREADS,
+            "rows_per_block": _G_BM,
+            "warp_tile": [_G_BM * warps_n // (_G_THREADS // 32),
+                          c_out // warps_n],
+            "channels_per_step": _G_BK, "steps": cw_pad // _G_BK,
+            "stages": _G_STAGES, "cw_pad": cw_pad,
+            "split_shape": [_G_PARTS, cw_pad, c_out],
+            "split_grid": [split_blocks],
+            "split_threads": _G_SPLIT_THREADS,
+            "smem_bytes": _gemm_smem_bytes(c_out)}
+
+
+def gemm_config(c_out: int = 96) -> dict:
+    """The constants compiled into csrc/onehot_gemm.cu, its shared memory
+    at c_out and the blocks an SM holds there, from the card's runtime (the
+    default is the script's width); raises if they differ from this
+    module's copy. Builds and loads the kernel; needs a CUDA device."""
+    cfg = (ctypes.c_int * 8)()
+    rc = cuda_kernels.function(
+        "onehot_gemm", "lgs_onehot_gemm_config",
+        [ctypes.c_void_p, ctypes.c_int])(ctypes.addressof(cfg), c_out)
+    if rc != 0:
+        raise RuntimeError(
+            f"onehot_gemm occupancy query failed: CUDA error {rc}")
+    keys = ("rows_per_block", "channels_per_step", "stages", "threads",
+            "parts", "split_threads", "dynamic_smem_bytes", "blocks_per_sm")
+    out = dict(zip(keys, cfg))
+    want = {"rows_per_block": _G_BM, "channels_per_step": _G_BK,
+            "stages": _G_STAGES, "threads": _G_THREADS, "parts": _G_PARTS,
+            "split_threads": _G_SPLIT_THREADS,
+            "dynamic_smem_bytes": _gemm_smem_bytes(c_out)}
+    if any(out[k] != v for k, v in want.items()):
+        raise RuntimeError(f"csrc/onehot_gemm.cu constants {out} differ "
+                           f"from {want}")
+    return out
+
+
+def _raw_stream(dev):
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def gemm_split(w):
+    """W's three bf16 parts as ``onehot_gemm``'s prepass writes them:
+    (3, cw_pad, c_out), rows past cw zero. A CUDA input launches the
+    prepass alone (not counted: it is a check of the onehot_gemm launch's
+    first kernel, not that launch); a CPU input runs ``split_bf16x3``."""
+    cw, c_out = w.shape
+    geo = gemm_geometry(1, cw, c_out)
+    if w.device.type == "cpu":
+        parts = torch.zeros(geo["split_shape"], dtype=torch.bfloat16)
+        parts[:, :cw] = split_bf16x3(w)
+        return parts
+    if w.device.type != "cuda":
+        raise ValueError(f"gemm_split: unsupported device {w.device}")
+    _check(w, "w", torch.float32, (cw, c_out), w.device)
+    parts = torch.empty(geo["split_shape"], dtype=torch.bfloat16,
+                        device=w.device)
+    fn = cuda_kernels.function(
+        "onehot_gemm", "lgs_onehot_gemm_split",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    with torch.cuda.device(w.device):
+        rc = fn(w.data_ptr(), parts.data_ptr(), cw, c_out,
+                _raw_stream(w.device))
+    if rc != 0:
+        raise RuntimeError(f"onehot_gemm prepass failed: CUDA error {rc}")
+    return parts
+
+
 def onehot_gemm(wstart, anchors, t3, w, tile, win):
     """Windowed row gather and f32 projection; contract as
-    ``onehot_gemm_reference``. A CUDA input launches the Hopper kernel
-    (``csrc/onehot_gemm.cu``); a CPU input runs the plain version."""
+    ``onehot_gemm_reference``. A CUDA input launches the Hopper kernels
+    (``csrc/onehot_gemm.cu``: the prepass splitting W into three bf16 parts
+    into scratch allocated here, then the product on the tensor cores; one
+    count) or raises (see ``gemm_geometry``); a CPU input runs the plain
+    version."""
     if t3.device.type == "cpu":
         return onehot_gemm_reference(wstart, anchors, t3, w, tile, win)
     if t3.device.type != "cuda":
@@ -122,9 +243,7 @@ def onehot_gemm(wstart, anchors, t3, w, tile, win):
     n = anchors.shape[0]
     n_rows, cw = t3.shape
     c_out = w.shape[1]
-    if cw % 4 or c_out not in KERNEL_C_OUT:
-        raise ValueError(f"onehot_gemm: cw {cw} must be a multiple of 4 and "
-                         f"c_out {c_out} one of {KERNEL_C_OUT}")
+    geo = gemm_geometry(n, cw, c_out)
     if tile <= 0 or n % tile or win <= 0:
         raise ValueError(f"onehot_gemm: n {n}, tile {tile}, win {win}")
     dev = t3.device
@@ -132,13 +251,20 @@ def onehot_gemm(wstart, anchors, t3, w, tile, win):
     _check(w, "w", torch.float32, (cw, c_out), dev)
     _check(anchors, "anchors", torch.int32, (n,), dev)
     _check(wstart, "wstart", torch.int32, (n // tile,), dev)
+    if t3.data_ptr() % 16:
+        raise ValueError("onehot_gemm: t3 is not 16-byte aligned")
+    wsplit = torch.empty(geo["split_shape"], dtype=torch.bfloat16,
+                         device=dev)
     out = torch.empty((n, c_out), dtype=torch.float32, device=dev)
+    args = (wstart.data_ptr(), anchors.data_ptr(), t3.data_ptr(),
+            w.data_ptr(), wsplit.data_ptr(), out.data_ptr(), n, n_rows, cw,
+            c_out, tile, win)
     fn = cuda_kernels.function("onehot_gemm")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(wstart.data_ptr(), anchors.data_ptr(), t3.data_ptr(),
-                w.data_ptr(), out.data_ptr(), n, n_rows, cw, c_out, tile, win,
-                stream)
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, _raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"onehot_gemm kernel launch failed: CUDA error {rc}")
     launch_counts["onehot_gemm"] += 1
@@ -332,10 +458,10 @@ def onehot_variants(mode, wstart, anchors, t3, w, tile, win, n_groups):
     # the raw stream handle, as sel_fwd passes it; the device's context is
     # entered only when the tensor is not on the current device
     if dev.index == torch.cuda.current_device():
-        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        rc = fn(*args, _raw_stream(dev))
     else:
         with torch.cuda.device(dev):
-            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+            rc = fn(*args, _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"onehot_variants kernel launch failed: CUDA error {rc}")

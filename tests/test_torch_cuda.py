@@ -351,14 +351,37 @@ def test_dw_ablation_modes_launch_and_full_is_the_kernel():
                        oc.dw_fused(*ident))
 
 
+def _gemm_check(args):
+    """One onehot_gemm launch (prepass and product, one count) against its
+    plain version (1e-5 of max |ref|: three exact bf16 products a term,
+    summed in f32 in another order) and a second launch bit-equal to the
+    first (a fixed sum order)."""
+    n, c_out = args[1].shape[0], args[3].shape[1]
+    n0 = oa.launch_counts["onehot_gemm"]
+    got = oa.onehot_gemm(*args)
+    torch.cuda.synchronize()
+    assert oa.launch_counts["onehot_gemm"] == n0 + 1
+    assert got.shape == (n, c_out)
+    assert torch.equal(oa.onehot_gemm(*args), got)
+    want = oa.onehot_gemm_reference(*args)
+    if not bool(want.any()):
+        assert bool((got == 0).all())
+        return got
+    assert _rel(got, want) <= RTOL
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,tile,win,cw,c_out", [
     (4096, 256, 512, 384, 96), (1000, 40, 200, 132, 32),
-    (2048, 512, 1024, 64, 16)])
+    (2048, 512, 1024, 64, 16), (1000, 200, 400, 4, 96),
+    (4097, 241, 482, 132, 16)])
 def test_onehot_gemm_kernel_matches_plain_version(n, tile, win, cw, c_out):
-    """Row counts that are not a multiple of the block's 64 rows, a cw that
-    leaves a ragged K chunk; 10% of the anchors moved anywhere (negative
-    and past the table included), so the window test decides."""
+    """Row counts that are not a multiple of the block's 256 rows (1,000;
+    4,097 = 17 x 241 tiles, ragged by one row past 16 blocks), a cw ragged
+    against the 32-channel step and the 16-deep mma (132, 4); 10% of the
+    anchors moved anywhere (negative and past the table included), so the
+    window test decides; a bit-equal relaunch."""
     dev = _card()
     a = oa.gemm_inputs(n, tile, win, cw, c_out, 3 * win // 8, seed=n,
                        device=dev)
@@ -368,17 +391,85 @@ def test_onehot_gemm_kernel_matches_plain_version(n, tile, win, cw, c_out):
                                        generator=gen, device=dev,
                                        dtype=torch.int32)
     args = [a["wstart"], a["anchors"], a["t3"], a["w"], tile, win]
-    n0 = oa.launch_counts["onehot_gemm"]
-    got = oa.onehot_gemm(*args)
-    torch.cuda.synchronize()
-    assert oa.launch_counts["onehot_gemm"] == n0 + 1
-    assert got.shape == (n, c_out)
-    want = oa.onehot_gemm_reference(*args)
-    assert _rel(got, want) <= RTOL
+    geo = oa.gemm_geometry(n, cw, c_out)
+    assert geo["blocks"] * geo["rows_per_block"] >= n
+    got = _gemm_check(args)
     # out-of-window rows are exact zeros
     hit, _ = oa._gemm_hits(a["wstart"], a["anchors"], n, tile, win)
     assert not bool(hit.all())
     assert bool((got[~hit] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_out", oa.KERNEL_C_OUT)
+def test_onehot_gemm_all_out_of_window_gives_zeros(c_out):
+    """Every window starts past the table, so no anchor is in one: every
+    row copy takes the zero-fill form and the output is exactly 0."""
+    dev = _card()
+    n, tile, win = 2048, 256, 512
+    a = oa.gemm_inputs(n, tile, win, 132, c_out, 192, seed=5, device=dev)
+    ws = torch.full_like(a["wstart"], n + win)
+    got = _gemm_check([ws, a["anchors"], a["t3"], a["w"], tile, win])
+    assert bool((got == 0).all())
+
+
+def _wide_w(cw, c_out, seed):
+    """W with exponents spread over 2^-60 .. 2^60 and random signs."""
+    rng = np.random.default_rng(seed)
+    mant = rng.uniform(1.0, 2.0, (cw, c_out))
+    exp = rng.integers(-60, 61, (cw, c_out))
+    sign = rng.choice([-1.0, 1.0], (cw, c_out))
+    return torch.from_numpy((sign * np.ldexp(mant, exp)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw,c_out", [(384, 96), (132, 32)])
+def test_onehot_gemm_wide_exponent_w(cw, c_out):
+    """A W whose exponents span 2^-60 .. 2^60 (the split's three parts
+    carry every bit of it), held within 1e-5 of max |ref|."""
+    dev = _card()
+    n, tile, win = 2048, 256, 512
+    a = oa.gemm_inputs(n, tile, win, cw, c_out, 192, seed=cw, device=dev)
+    w = _wide_w(cw, c_out, seed=cw).to(dev)
+    _gemm_check([a["wstart"], a["anchors"], a["t3"], w, tile, win])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw,c_out,wide", [(384, 96, False), (132, 32, True),
+                                           (4, 16, True), (100, 96, True)])
+def test_onehot_gemm_prepass_matches_plain_split(cw, c_out, wide):
+    """The prepass's (3, cw_pad, c_out) parts are bit-equal to
+    split_bf16x3 with zero rows past cw, and add back to W exactly."""
+    dev = _card()
+    if wide:
+        w = _wide_w(cw, c_out, seed=cw + 1)
+    else:
+        w = oa.gemm_inputs(256, 256, 256, cw, c_out, 64, seed=0,
+                           device="cpu")["w"]
+    got = oa.gemm_split(w.to(dev))
+    torch.cuda.synchronize()
+    want = oa.gemm_split(w)  # the CPU's plain split, zero-padded
+    assert got.shape == (3, oa.gemm_geometry(1, cw, c_out)["cw_pad"], c_out)
+    assert torch.equal(got.cpu(), want)
+    assert not bool(got[:, cw:].any())
+    total = got[:, :cw].cpu().double().sum(0)
+    assert torch.equal(total, w.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_out", oa.KERNEL_C_OUT)
+def test_gemm_config_matches_geometry(c_out):
+    """The constants compiled into csrc/onehot_gemm.cu are the wrapper's,
+    its shared memory is the plan's, and a block fits an SM."""
+    _card()
+    cfg = oa.gemm_config(c_out)
+    geo = oa.gemm_geometry(4096, 384, c_out)
+    assert cfg["dynamic_smem_bytes"] == geo["smem_bytes"]
+    assert cfg["threads"] == geo["threads"]
+    assert cfg["rows_per_block"] == geo["rows_per_block"]
+    assert cfg["stages"] == geo["stages"] >= 3
+    assert cfg["parts"] == 3
+    assert cfg["blocks_per_sm"] >= 1
 
 
 def _variants_check(mode, args):
