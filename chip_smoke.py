@@ -10,9 +10,14 @@ drives Res16UNet34C (200 classes) on a 4-scene synthetic batch through the
 entry points a user calls: the eval forward (``make_eval_step``) and the SGD
 train step (``make_train_step``), each run with the launch counts set to 0
 just before it and checked against the counts the graph and the model
-imply. Last it compares the card with the CPU's plain path on a small batch:
+imply. Then it compares the card with the CPU's plain path on a small batch:
 the forward's logits, and one train step's loss, gradients, parameters and
-BN statistics. Each phase prints one JSON line; the last line is
+BN statistics. Last it drives the production path end to end: the port's
+``initialize_data_loader`` (augmented synthetic scenes, two worker threads,
+batches copied to the card on the loader's side stream) feeding the SGD
+train step, with the launches of every step checked against its batch and
+the card loader's batches held equal to a CPU loader's. Each phase prints
+one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. It needs a CUDA device and imports
 nothing of JAX.
@@ -25,6 +30,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -75,6 +81,10 @@ SEL_SHAPES = ((96, "l0.k3"), (32, "l0.k3"), (384, "l0.k3"), (256, "l4.k3"))
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
+# phase e2e_path: bench.py's end-to-end section (bench.py:197-208)
+E2E_SCENES, E2E_BATCH, E2E_WORKERS = 8, 4, 2
+E2E_WARMUP, E2E_STEPS = 4, 20
+TRANSFER_CHECK_BATCHES = 4
 
 
 def emit(obj) -> None:
@@ -108,6 +118,8 @@ def cuda_ms(fn, runs: int, warmup: int = 3) -> float:
 
 
 def phase_device() -> dict:
+    import scipy  # the data layer's transforms, voxelizer and datasets
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -122,7 +134,7 @@ def phase_device() -> dict:
         "count": torch.cuda.device_count(),
         "capability": list(torch.cuda.get_device_capability(0)),
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "python": sys.version.split()[0],
+        "python": sys.version.split()[0], "scipy": scipy.__version__,
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "matmul_allow_bf16_reduced_precision_reduction":
@@ -1233,6 +1245,277 @@ def phase_train_parity() -> dict:
     return rec
 
 
+def e2e_dataset():
+    """bench.py's end-to-end dataset (bench.py:197-200): 8 synthetic
+    scenes of POINTS points, 200 classes."""
+    from languagegroundedsemseg_torch.data.synthetic_dataset import (
+        SyntheticDatasetBase,
+    )
+
+    class BenchSynthetic200Dataset(SyntheticDatasetBase):
+        NUM_SCENES = E2E_SCENES
+        POINTS_PER_SCENE = POINTS
+        NUM_CLASSES = 200
+
+    return BenchSynthetic200Dataset
+
+
+def e2e_loader(device, num_workers: int = E2E_WORKERS):
+    """The production loader as bench.py builds it (bench.py:202-207):
+    shuffled, repeating, augmented 4-scene batches in the compact wire
+    format, on ``device``."""
+    from languagegroundedsemseg_torch.config import Config
+    from languagegroundedsemseg_torch.data.loader import initialize_data_loader
+
+    cfg = Config(batch_size=E2E_BATCH, num_workers=num_workers,
+                 ignore_label=255)
+    return initialize_data_loader(
+        e2e_dataset(), cfg, phase="train", num_workers=num_workers,
+        shuffle=True, repeat=True, augment_data=True, batch_size=E2E_BATCH,
+        limit_numpoints=cfg.train_limit_numpoints, ship_coords=False,
+        device=device)
+
+
+class _Timed:
+    """Wraps a callable the loader's workers call and keeps each call's
+    host seconds (thread-safe)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.seconds = []
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.seconds.append(dt)
+        return out
+
+    def summary(self) -> dict:
+        xs = self.seconds
+        return {"n": len(xs), "median_s": statistics.median(xs),
+                "max_s": max(xs), "sum_s": sum(xs)} if xs else {"n": 0}
+
+
+def _host_bytes(obj) -> int:
+    """Bytes of every numpy array of a host batch: what crosses to the
+    card."""
+    import dataclasses
+
+    if isinstance(obj, np.ndarray):
+        return obj.nbytes
+    if dataclasses.is_dataclass(obj):
+        return sum(_host_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, dict):
+        return sum(_host_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_host_bytes(v) for v in obj)
+    return 0
+
+
+def _spread(times) -> float:
+    """bench.py's spread: (max - min) / min."""
+    lo, hi = min(times), max(times)
+    return (hi - lo) / lo if lo > 0 else 0.0
+
+
+def _check_step_launches(launches: dict, want: dict, i: int) -> None:
+    if launches != want:
+        raise AssertionError(
+            f"e2e step {i}: launches {launches}, expected {want}")
+    missing = [k for k in ("sel_fwd", "dw", "csum") if not launches[k]]
+    if missing:
+        raise AssertionError(f"e2e step {i}: {missing} did not run")
+
+
+def _idle_step_ms(step, state, batch, runs: int = 3) -> list:
+    """Host ms of ``runs`` synced train steps on ``batch`` once the
+    loader's worker threads have finished their last build: the same
+    step without the workers' competition for the host."""
+    deadline = time.perf_counter() + 120
+    while any(t.name.startswith("lgs-loader") for t in threading.enumerate()):
+        if time.perf_counter() > deadline:
+            raise AssertionError("the loader's workers did not stop")
+        time.sleep(0.05)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])  # syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def transfer_check(step, state) -> dict:
+    """Two loaders with one worker and the same seed, one on the card and
+    one on the CPU. Their batches are taken in turn with a train step on
+    each card batch between them, so every copy after the first overlaps a
+    step, as in the timed run. Every tensor of every card batch equals the
+    CPU batch's after ``.cpu()``. Also the H2D cost of one worker's copy:
+    the host time of the loader's transfer (pinning and queueing) and the
+    side stream's span from before the first copy to after the last."""
+    from languagegroundedsemseg_torch.data.loader import batch_tensors
+
+    card, host = e2e_loader("cuda", 1), e2e_loader("cpu", 1)
+    copies = []
+    to_device = card._to_device
+
+    def timed_to_device(b):
+        stream = card._copy_stream
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        t0 = time.perf_counter()
+        out = to_device(b)
+        host_s = time.perf_counter() - t0
+        end.record(stream)
+        copies.append((start, end, host_s, _host_bytes(b)))
+        return out
+
+    card._to_device = timed_to_device
+    it_card, it_host = iter(card), iter(host)
+    n_tensors = 0
+    try:
+        for i in range(TRANSFER_CHECK_BATCHES):
+            got, want = next(it_card), next(it_host)
+            pairs = list(zip(batch_tensors(got), batch_tensors(want)))
+            if len(pairs) != len(list(batch_tensors(want))) or not pairs:
+                raise AssertionError(f"transfer check batch {i}: the card "
+                                     "and CPU batches differ in structure")
+            for j, (g, w) in enumerate(pairs):
+                if not (g.device.type == card.device.type
+                        and torch.equal(g.cpu(), w)):
+                    raise AssertionError(
+                        f"transfer check batch {i}: tensor {j} differs")
+            n_tensors += len(pairs)
+            state, m = step(state, got)
+            if not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"transfer check batch {i}: loss "
+                                     f"{float(m['loss'])}")
+    finally:
+        it_card.close()
+        it_host.close()
+    torch.cuda.synchronize()
+    return {"batches": TRANSFER_CHECK_BATCHES, "tensors_equal": n_tensors,
+            "h2d_host_ms": [c[2] * 1e3 for c in copies],
+            "h2d_stream_ms": [c[0].elapsed_time(c[1]) for c in copies],
+            "h2d_mb": [c[3] / 1e6 for c in copies]}
+
+
+def phase_e2e_path() -> dict:
+    """The production path end to end (bench.py:186-262): the port's
+    loader (dataset get_item with elastic distortion, voxelization and
+    chromatic augmentations, then the fused graph build, in two worker
+    threads; batches copied to the card on the loader's side stream)
+    feeding the SGD train step of Res16UNet34C (200 classes, conditioned
+    weights). E2E_WARMUP steps, then E2E_STEPS timed steps, each synced.
+    Every timed step's launches equal ``expected_launches`` of its batch
+    (counts set to 0 just before the step and read just after); loss and
+    grad norm finite. Then the transfer check. The workers' get_item and
+    graph-build times come from wrapping those two calls here."""
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    model = scaled_model("cuda")
+    step, state = _train_setup(model)
+    loader = e2e_loader("cuda")
+    get_item = loader.dataset.get_item = _Timed(loader.dataset.get_item)
+    build = loader.builder.build_host = _Timed(loader.builder.build_host)
+    to_device, h2d_bytes = loader._to_device, []
+
+    def counted_to_device(b):
+        h2d_bytes.append(_host_bytes(b))
+        return to_device(b)
+
+    transfer = loader._to_device = _Timed(counted_to_device)
+
+    t_first = time.perf_counter()
+    it = iter(loader)
+    first_batch_s = None
+    for _ in range(E2E_WARMUP):
+        b = next(it)
+        if first_batch_s is None:
+            first_batch_s = time.perf_counter() - t_first
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    iter_s, wait_s, step_s, losses, norms = [], [], [], [], []
+    per_step_launches, voxels, caps = [], [], []
+    totals = {"sel_fwd": 0, "csum": 0, "dw": 0}
+    oa.reset_launch_counts()
+    for i in range(E2E_STEPS):
+        t0 = time.perf_counter()
+        b = next(it)  # the workers build and copy ahead
+        t1 = time.perf_counter()
+        want = expected_launches(model, b.graph, train=True)
+        oc.reset_launch_counts()
+        state, m = step(state, b)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])  # syncs
+        t2 = time.perf_counter()
+        launches = dict(oc.launch_counts)
+        _check_step_launches(launches, want, i)
+        for k in totals:
+            totals[k] += launches[k]
+        iter_s.append(t2 - t0)
+        wait_s.append(t1 - t0)
+        step_s.append(t2 - t1)
+        losses.append(loss)
+        norms.append(norm)
+        per_step_launches.append([launches["sel_fwd"], launches["csum"],
+                                  launches["dw"]])
+        voxels.append(int(b.graph.levels[0].valid.sum()))
+        caps.append(b.graph.levels[0].capacity)
+    peak = torch.cuda.max_memory_allocated()
+    ablation_launches = dict(oa.launch_counts)
+    counters = loader.counters.snapshot()
+    built = max(loader.counters.batches, 1)
+    avg_scene_voxels = loader.counters.level_num_sum.get(0, 0) / built / E2E_BATCH
+    it.close()  # stops the feeder and cancels the queued builds
+    idle_ms = _idle_step_ms(step, state, b)
+    if any(ablation_launches.values()):
+        raise AssertionError(f"ablation kernels on the e2e path: "
+                             f"{ablation_launches}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+
+    check = transfer_check(step, state)
+    q = E2E_STEPS // 4
+    quarters = [sum(iter_s[j * q:(j + 1) * q]) for j in range(4)]
+    rec = {"phase": "e2e_path", "scenes": E2E_SCENES,
+           "points_per_scene": POINTS, "batch_size": E2E_BATCH,
+           "num_workers": E2E_WORKERS, "warmup_steps": E2E_WARMUP,
+           "steps": E2E_STEPS, "lr": TRAIN_LR,
+           "e2e_scenes_per_sec": E2E_BATCH * E2E_STEPS / sum(iter_s),
+           "e2e_spread": _spread(quarters),
+           "e2e_avg_scene_voxels": avg_scene_voxels,
+           "h2d_mb_per_batch": statistics.mean(h2d_bytes) / 1e6,
+           "iter_ms_median": statistics.median(iter_s) * 1e3,
+           "step_ms_median": statistics.median(step_s) * 1e3,
+           "step_ms_runs": [t * 1e3 for t in step_s],
+           "step_ms_loader_idle": idle_ms,
+           "wait_ms_median": statistics.median(wait_s) * 1e3,
+           "wait_ms_max": max(wait_s) * 1e3,
+           "wait_ms_runs": [t * 1e3 for t in wait_s],
+           "first_batch_s": first_batch_s,
+           "worker_get_item": get_item.summary(),
+           "worker_build": build.summary(),
+           "worker_transfer_host": transfer.summary(),
+           "loader_counters": counters,
+           "max_memory_allocated": peak,
+           "voxels": voxels, "level0_capacities": caps,
+           "launches_per_step": per_step_launches,
+           "launch_order": ["sel_fwd", "csum", "dw"],
+           "launches": totals, "ablation_launches": ablation_launches,
+           "losses": losses, "grad_norms": norms,
+           "transfer_check": check}
+    emit(rec)
+    return rec
+
+
 _REPLACES = {
     "sel_fwd": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:77", 96),
     "csum": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:618", 32),
@@ -1278,6 +1561,7 @@ def main() -> int:
     del model
     train = phase_train_path(batch)
     phase_train_parity()
+    e2e = phase_e2e_path()
 
     # one row per kernel, at its main forward width (dw: block8's convs);
     # launches per train step, beside the forward's
@@ -1289,6 +1573,7 @@ def main() -> int:
             "source": f"languagegroundedsemseg_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": train["launches"][name],
             "launches_per_forward": main["launches"][name],
+            "launches_e2e": e2e["launches"][name],
             "width": width, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1304,6 +1589,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": train["ablation_launches"][name],
             "launches_per_forward": main["ablation_launches"][name],
+            "launches_e2e": e2e["ablation_launches"][name],
             "launches_per_ablation": ablation["launches"][name],
             "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

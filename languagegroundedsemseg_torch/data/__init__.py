@@ -1,1 +1,2 @@
-"""Data layer: synthetic scenes and batch assembly."""
+"""Data layer: synthetic scenes, transforms, voxelizer, datasets, batch
+assembly and the threaded loader."""

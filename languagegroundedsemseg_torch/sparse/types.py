@@ -25,15 +25,24 @@ import numpy as np
 import torch
 
 
-def _leaf_to(v, device):
+def leaf_to(v, device, non_blocking: bool = False):
+    """An array leaf as a tensor on ``device``. With ``non_blocking`` a
+    numpy array bound for the card is copied into pinned memory first, so
+    the copy is queued on the current stream and the host goes on."""
     if isinstance(v, np.ndarray):
+        pin = non_blocking and torch.device(device).type == "cuda"
         if v.dtype == np.uint16:
-            t = torch.from_numpy(np.ascontiguousarray(v).view(np.int16))
-            return t.to(device).to(torch.int32) & 0xFFFF
-        return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            t = _host_tensor(v.view(np.int16), pin)
+            return t.to(device, non_blocking=non_blocking).to(torch.int32) & 0xFFFF
+        return _host_tensor(v, pin).to(device, non_blocking=non_blocking)
     if isinstance(v, torch.Tensor):
-        return v.to(device)
+        return v.to(device, non_blocking=non_blocking)
     return v
+
+
+def _host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if pin else t
 
 
 class _Tree:
@@ -43,12 +52,12 @@ class _Tree:
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
 
-    def to(self, device):
+    def to(self, device, non_blocking: bool = False):
         changes = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, (np.ndarray, torch.Tensor)):
-                changes[f.name] = _leaf_to(v, device)
+                changes[f.name] = leaf_to(v, device, non_blocking)
         return dataclasses.replace(self, **changes)
 
 
@@ -234,10 +243,11 @@ class ConvGraph(_Tree):
     maps: Mapping[str, KernelMap]
     gmaps: Mapping[str, Any] = field(default_factory=dict)
 
-    def to(self, device) -> "ConvGraph":
+    def to(self, device, non_blocking: bool = False) -> "ConvGraph":
         return ConvGraph(
-            levels=tuple(l.to(device) for l in self.levels),
-            maps={k: m.to(device) for k, m in self.maps.items()},
-            gmaps={k: m.to(device) for k, m in (self.gmaps or {}).items()},
+            levels=tuple(l.to(device, non_blocking) for l in self.levels),
+            maps={k: m.to(device, non_blocking) for k, m in self.maps.items()},
+            gmaps={k: m.to(device, non_blocking)
+                   for k, m in (self.gmaps or {}).items()},
         )
 

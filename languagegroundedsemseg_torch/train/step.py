@@ -17,7 +17,7 @@ import torch
 
 from languagegroundedsemseg_torch.device import resolve_device
 from languagegroundedsemseg_torch.ops.onehot_conv import with_inverse_anchors
-from languagegroundedsemseg_torch.sparse.types import ConvGraph
+from languagegroundedsemseg_torch.sparse.types import ConvGraph, leaf_to
 from languagegroundedsemseg_torch.train.state import TrainState
 
 # objective(logits, features, batch, generator, row_mask) -> (loss, metrics)
@@ -38,18 +38,17 @@ class TrainBatch:
     def replace(self, **changes) -> "TrainBatch":
         return dataclasses.replace(self, **changes)
 
-    def to(self, device) -> "TrainBatch":
+    def to(self, device, non_blocking: bool = False) -> "TrainBatch":
+        """A copy with every array on ``device``. ``non_blocking`` pins the
+        host arrays and queues the copies on the current stream (the
+        loader's side stream); the caller orders its use after them."""
         dev = resolve_device(device)
-
-        def move(a):
-            if isinstance(a, np.ndarray):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            return a.to(dev)
-
         return TrainBatch(
-            feats=move(self.feats), labels=move(self.labels),
-            graph=self.graph.to(dev),
-            extras={k: move(v) for k, v in self.extras.items()},
+            feats=leaf_to(self.feats, dev, non_blocking),
+            labels=leaf_to(self.labels, dev, non_blocking),
+            graph=self.graph.to(dev, non_blocking),
+            extras={k: leaf_to(v, dev, non_blocking)
+                    for k, v in self.extras.items()},
         )
 
     def decompact(self) -> "TrainBatch":

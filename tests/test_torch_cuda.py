@@ -590,3 +590,38 @@ def test_onehot_window_conv_autograd_on_card():
     want = run("cpu")
     for a, b in zip(got, want):
         assert _rel(a, b) <= CARD_VS_CPU_RTOL
+
+
+@pytest.mark.cuda
+def test_loader_batches_on_the_card_equal_the_cpu_loaders():
+    """The loader's transfer (pinned host arrays, non_blocking copies on
+    its side stream, an event the consumer's stream waits on): a card
+    loader and a CPU loader with the same seed and one worker each yield
+    equal batches, every tensor of the card's on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from languagegroundedsemseg_torch.config import Config
+    from languagegroundedsemseg_torch.data.loader import (
+        batch_tensors,
+        initialize_data_loader,
+    )
+    from languagegroundedsemseg_torch.data.synthetic_dataset import (
+        SyntheticTiny20Dataset,
+    )
+
+    loaders = [initialize_data_loader(
+        SyntheticTiny20Dataset, Config(batch_size=2, ignore_label=255),
+        "train", 1, True, True, True, 2, 10_000_000, ship_coords=False,
+        device=device) for device in ("cuda", "cpu")]
+    its = [iter(loader) for loader in loaders]
+    try:
+        for _ in range(4):
+            got, want = next(its[0]), next(its[1])
+            pairs = list(zip(batch_tensors(got), batch_tensors(want)))
+            assert pairs and len(pairs) == len(list(batch_tensors(want)))
+            for g, w in pairs:
+                assert g.is_cuda and torch.equal(g.cpu(), w)
+    finally:
+        for it in its:
+            it.close()
+    assert loaders[0]._copy_stream is not None
