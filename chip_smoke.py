@@ -12,12 +12,16 @@ train step (``make_train_step``), each run with the launch counts set to 0
 just before it and checked against the counts the graph and the model
 imply. Then it compares the card with the CPU's plain path on a small batch:
 the forward's logits, and one train step's loss, gradients, parameters and
-BN statistics. Last it drives the production path end to end: the port's
+BN statistics. Then it drives the production path end to end: the port's
 ``initialize_data_loader`` (augmented synthetic scenes, two worker threads,
 batches copied to the card on the loader's side stream) feeding the SGD
 train step, with the launches of every step checked against its batch and
-the card loader's batches held equal to a CPU loader's. Each phase prints
-one JSON line; the last line is
+the card loader's batches held equal to a CPU loader's. Then the training
+program a user runs: ``cli.main.main`` with the flags of
+outputs/learning_curve_r5/config.json, two epochs in the baseline and in
+the language-grounded mode and a resume one epoch on, each run's launches
+checked against every train step and eval forward it made. Each phase
+prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. It needs a CUDA device and imports
 nothing of JAX.
@@ -25,11 +29,14 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1515,6 +1522,231 @@ def phase_e2e_path() -> dict:
     emit(rec)
     return rec
 
+# phase trainer_path: the flags of outputs/learning_curve_r5/config.json
+# (Res16UNet34C, Synthetic200Voxelization2cmDataset: 16 scenes x 60,000
+# points, 200 classes; batch 4, lr 0.05, SGD, MultiStepLR, 2 workers, seed
+# 42) through the port's command line
+LEARNING_CURVE_ARGV = [
+    "--model", "Res16UNet34C", "--dataset", "Synthetic200Voxelization2cmDataset",
+    "--batch_size", "4", "--val_batch_size", "4", "--lr", "0.05",
+    "--optimizer", "SGD", "--scheduler", "MultiStepLR", "--num_workers", "2",
+    "--num_val_workers", "2", "--seed", "42", "--stat_freq", "4"]
+TRAINER_EPOCHS = 2
+
+
+def _recording_trainer():
+    """A ``Trainer`` that keeps, for each of its train and eval steps, the
+    launches ``expected_launches`` gives for that step's batch, the step's
+    loss and the times the steps, validations and checkpoint saves end
+    (each train step synced), without changing what runs."""
+    from languagegroundedsemseg_torch.train.trainer import Trainer
+
+    class RecordingTrainer(Trainer):
+        instances = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            RecordingTrainer.instances.append(self)
+            self.want = {"sel_fwd": 0, "csum": 0, "dw": 0}
+            self.n_train = self.n_eval = 0
+            self.losses, self.step_s, self.val_s = [], [], []
+            self._mark = None
+            train, evaluate, save = self.p_train_step, self.p_eval_step, self.ckpt.save
+
+            def train_step(state, batch, gen):
+                for k, v in expected_launches(self.model, batch.graph, True).items():
+                    self.want[k] += v
+                out = train(state, batch, gen)
+                self.losses.append(float(out[1]["loss"]))  # syncs
+                now = time.perf_counter()
+                self.step_s.append(now - self._mark)
+                self._mark = now
+                self.n_train += 1
+                return out
+
+            def eval_step(batch):
+                for k, v in expected_launches(self.model, batch.graph).items():
+                    self.want[k] += v
+                self.n_eval += 1
+                return evaluate(batch)
+
+            def ckpt_save(*args, **kwargs):
+                save(*args, **kwargs)
+                self._mark = time.perf_counter()
+
+            self.p_train_step, self.p_eval_step = train_step, eval_step
+            self.ckpt.save = ckpt_save
+
+        def validate(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().validate(*args, **kwargs)
+            torch.cuda.synchronize()
+            self._mark = time.perf_counter()
+            self.val_s.append(self._mark - t0)
+            return out
+
+        def fit(self, *args, **kwargs):
+            t0 = self._mark = time.perf_counter()
+            out = super().fit(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.fit_s = time.perf_counter() - t0
+            return out
+
+    return RecordingTrainer
+
+
+def _checked_restore(restore, log):
+    """``restore_checkpoint`` that then holds the restored model and
+    optimizer to the checkpoint's tensors (``torch.equal``)."""
+
+    def checked(path, template):
+        state = restore(path, template)
+        blob = torch.load(path, map_location=next(state.model.parameters()).device,
+                          weights_only=True)
+        for k, v in blob["model"].items():
+            if not torch.equal(state.model.state_dict()[k], v):
+                raise AssertionError(f"resume: model tensor {k} differs")
+        got = state.optimizer.inner.state_dict()["state"]
+        for i, st in blob["optimizer"]["state"].items():
+            for k, v in st.items():
+                if not torch.equal(got[i][k], v):
+                    raise AssertionError(f"resume: optimizer {i}.{k} differs")
+        log.update(path=os.path.basename(path), step=state.step,
+                   updates=state.optimizer.updates,
+                   tensors_equal=len(blob["model"]) + sum(
+                       len(st) for st in blob["optimizer"]["state"].values()))
+        return state
+
+    return checked
+
+
+def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
+                 resumed: dict = None) -> dict:
+    """One ``cli.main.main(argv)`` on the card with every launch count set
+    to 0 just before it, checked just after against the launches of every
+    train step and eval forward it ran. ``argv`` trains to epoch
+    ``epochs``: the state must end at ``epochs`` x len(train_loader)
+    steps, with a record for each epoch this run trained."""
+    from languagegroundedsemseg_torch.cli.main import main as cli_main
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.train import trainer as trainer_mod
+
+    recording = _recording_trainer()
+    patches = [mock.patch.object(trainer_mod, "Trainer", recording)]
+    if resumed is not None:
+        patches.append(mock.patch.object(
+            trainer_mod, "restore_checkpoint",
+            _checked_restore(trainer_mod.restore_checkpoint, resumed)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oc.reset_launch_counts()
+    oa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        test_metrics = cli_main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches, ablation = dict(oc.launch_counts), dict(oa.launch_counts)
+    (tr,) = recording.instances
+    log_dir = tr.log_dir
+    per_epoch = len(tr.train_loader)
+    want_step = epochs * per_epoch
+    first_epoch = 0
+    if resumed is not None:
+        if "step" not in resumed:
+            raise AssertionError(f"{name}: no checkpoint was restored")
+        first_epoch = resumed["step"] // per_epoch
+
+    if launches != tr.want:
+        raise AssertionError(f"{name}: launches {launches}, expected {tr.want} "
+                             f"({tr.n_train} train steps, {tr.n_eval} eval forwards)")
+    if min(launches.values()) == 0 or any(ablation.values()):
+        raise AssertionError(f"{name}: launches {launches}, ablation {ablation}")
+    if tr.state.step != want_step:
+        raise AssertionError(f"{name}: step {tr.state.step}, expected {want_step}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    epoch_recs = [r for r in recs if r["phase"] == "epoch"]
+    logged = [r["loss"] for r in recs if r["phase"] == "train"]
+    if [r["epoch"] for r in epoch_recs] != list(range(first_epoch, epochs)):
+        raise AssertionError(f"{name}: epoch records {epoch_recs}")
+    for r in epoch_recs:
+        if not (0.0 <= r["val_miou"] <= 1.0 and np.isfinite(r["val_loss"])
+                and np.isfinite(r["train_loss"])):
+            raise AssertionError(f"{name}: epoch record {r}")
+    if not (logged and np.isfinite(logged + tr.losses).all()):
+        raise AssertionError(f"{name}: losses {tr.losses}, logged {logged}")
+    files = sorted(os.listdir(log_dir))
+    for prefix in (f"last_step={want_step}.ckpt",) + tuple(
+            f"best_{m}=" for m in monitors):
+        if not any(f.startswith(prefix) and f.endswith(".ckpt") for f in files):
+            raise AssertionError(f"{name}: no {prefix}* checkpoint in {files}")
+    if not 0.0 <= test_metrics["val_miou"] <= 1.0:
+        raise AssertionError(f"{name}: test pass {test_metrics}")
+
+    batch = tr.config.batch_size
+    after_first = tr.step_s[1:]
+    return {"run": name, "mode": tr.mode, "steps": tr.n_train,
+            "state_step": tr.state.step, "epochs": len(epoch_recs),
+            "steps_per_epoch": per_epoch,
+            "eval_forwards": tr.n_eval, "main_s": main_s, "fit_s": tr.fit_s,
+            "scenes_per_s": batch * len(after_first) / sum(after_first),
+            "step_s": tr.step_s, "val_s": tr.val_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "loader_counters": tr.train_loader.counters.snapshot(),
+            "first_loss": tr.losses[0], "last_loss": tr.losses[-1],
+            "losses": tr.losses,
+            "epoch_records": [{k: r[k] for k in ("epoch", "step", "train_loss",
+                                                 "val_miou", "val_loss", "time_s")}
+                              for r in epoch_recs],
+            "test_metrics": {k: test_metrics[k] for k in ("val_miou", "val_loss")},
+            "checkpoints": [f for f in files if f.endswith(".ckpt")],
+            "launches": launches, "expected_launches": tr.want,
+            "ablation_launches": ablation,
+            **({"resumed": resumed} if resumed is not None else {})}
+
+
+def phase_trainer_path() -> dict:
+    """The training program a user runs, on the card: ``cli.main.main``
+    parses the learning-curve flags into the port's Trainer, which trains
+    TRAINER_EPOCHS epochs from the production loader, validates each
+    epoch (mIoU, mAP), writes checkpoints, then runs the test pass.
+    (a) the baseline: CE with the config's balanced category sampling;
+    (b) the language-grounded pretraining: the same flags plus
+    ``--use_embedding_loss contrastive`` against the dataset's seeded
+    512-d anchors, on the reference's pretraining model, Res16UNet34D
+    (PLANES[-1] = 512: 34C's 96-d features cannot meet the anchors; the
+    reference's scripts/text_representation_train.sh pairs the two);
+    (c) ``--resume`` of (a) one epoch further, its restored
+    tensors held equal to the checkpoint's. Each run's launches equal the
+    sum over its train steps and eval forwards of ``expected_launches``."""
+    with tempfile.TemporaryDirectory(prefix="lgs_trainer_path_") as tmp:
+        a_dir, b_dir, c_dir = (os.path.join(tmp, n) for n in "abc")
+        n = TRAINER_EPOCHS
+        runs = [
+            _trainer_run("baseline", LEARNING_CURVE_ARGV + [
+                "--max_epoch", str(n), "--log_dir", a_dir], n, ("val_miou",)),
+            _trainer_run("language_grounded", LEARNING_CURVE_ARGV + [
+                "--max_epoch", str(n), "--model", "Res16UNet34D",
+                "--use_embedding_loss", "contrastive", "--log_dir", b_dir],
+                n, ("val_miou", "val_loss")),
+            _trainer_run("resume", LEARNING_CURVE_ARGV + [
+                "--max_epoch", str(n + 1), "--resume", a_dir,
+                "--log_dir", c_dir], n + 1, ("val_miou",), resumed={}),
+        ]
+    if runs[1]["mode"] != "representation" or runs[0]["mode"] != "baseline":
+        raise AssertionError(f"modes {[r['mode'] for r in runs]}")
+    totals = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    rec = {"phase": "trainer_path", "argv": LEARNING_CURVE_ARGV, "runs": runs,
+           "launches": totals,
+           "ablation_launches": {k: sum(r["ablation_launches"][k] for r in runs)
+                                 for k in runs[0]["ablation_launches"]}}
+    emit(rec)
+    return rec
+
 
 _REPLACES = {
     "sel_fwd": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:77", 96),
@@ -1562,6 +1794,7 @@ def main() -> int:
     train = phase_train_path(batch)
     phase_train_parity()
     e2e = phase_e2e_path()
+    trainer = phase_trainer_path()
 
     # one row per kernel, at its main forward width (dw: block8's convs);
     # launches per train step, beside the forward's
@@ -1574,6 +1807,7 @@ def main() -> int:
             "replaces": replaces, "launches": train["launches"][name],
             "launches_per_forward": main["launches"][name],
             "launches_e2e": e2e["launches"][name],
+            "launches_trainer": trainer["launches"][name],
             "width": width, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1590,6 +1824,7 @@ def main() -> int:
             "launches": train["ablation_launches"][name],
             "launches_per_forward": main["ablation_launches"][name],
             "launches_e2e": e2e["ablation_launches"][name],
+            "launches_trainer": trainer["ablation_launches"][name],
             "launches_per_ablation": ablation["launches"][name],
             "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

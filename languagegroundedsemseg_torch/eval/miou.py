@@ -1,10 +1,11 @@
-"""Confusion-matrix semantic-segmentation metrics, the numpy half.
+"""Confusion-matrix semantic-segmentation metrics.
 
 Counterpart of ``languagegroundedsemseg_tpu/eval/miou.py``: ``fast_hist``,
 ``per_class_iou``, ``per_class_accuracy``, ``IoUEvaluator`` and the binned AP
-finalizers, copied. The JAX module's device-side accumulators,
-``fast_hist_jax`` and ``ap_histograms_jax``, are not here yet: they come as
-torch functions with the trainer and eval loop.
+finalizers, copied (numpy). The JAX module's device-side accumulators,
+``fast_hist_jax`` and ``ap_histograms_jax``, are ``fast_hist_torch`` and
+``ap_histograms_torch`` here: torch functions on the device's tensors, built
+on ``torch.bincount``, that read nothing back to the host.
 
 fast_hist / per_class_iou mirror reference lib/utils.py:92-109; the streaming
 evaluator adds per-class accuracy/precision/recall and the head/common/tail
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def fast_hist(pred: np.ndarray, label: np.ndarray, n: int) -> np.ndarray:
@@ -25,6 +27,19 @@ def fast_hist(pred: np.ndarray, label: np.ndarray, n: int) -> np.ndarray:
     return np.bincount(
         n * label[k].astype(int) + pred[k].astype(int), minlength=n ** 2
     ).reshape(n, n)
+
+
+def fast_hist_torch(pred: torch.Tensor, label: torch.Tensor, n: int,
+                    row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Device-side (n, n) int64 confusion counts (rows = gt, cols = pred);
+    labels outside [0, n) and rows with ``row_mask`` 0 are dropped."""
+    label = label.long()
+    valid = (label >= 0) & (label < n)
+    if row_mask is not None:
+        valid = valid & (row_mask > 0)
+    idx = torch.where(valid, n * label + torch.clamp(pred.long(), 0, n - 1),
+                      n * n)
+    return torch.bincount(idx, minlength=n * n + 1)[: n * n].reshape(n, n)
 
 
 def per_class_iou(hist: np.ndarray) -> np.ndarray:
@@ -90,6 +105,35 @@ class IoUEvaluator:
                 f"head {m['head_miou']*100:.2f}  common {m['common_miou']*100:.2f}  tail {m['tail_miou']*100:.2f}"
             )
         return "\n".join(lines)
+
+
+def ap_histograms_torch(probs: torch.Tensor, labels: torch.Tensor,
+                        num_classes: int, num_bins: int = 2048,
+                        row_mask: Optional[torch.Tensor] = None):
+    """Device-side per-class score histograms for streaming AP.
+
+    Returns (tp_hist, fp_hist), f32 of shape (C, num_bins): counts of
+    positive / negative examples per probability bin. Accumulate over
+    batches, then finalize with ``ap_from_histograms``. The binned AP
+    differs from the exact torchmetrics AveragePrecision (reference
+    pl_BaselineTrainer.py:54-70) only by intra-bin score ordering.
+    Each count is one ``bincount`` over the flat (class, bin) index; the
+    negatives are every row's count less the positives."""
+    c, nb = num_classes, num_bins
+    labels = labels.long()
+    valid = (labels >= 0) & (labels < c)
+    if row_mask is not None:
+        valid = valid & (row_mask > 0)
+    bins = torch.clamp((probs * nb).to(torch.int32), 0, nb - 1).long()  # (N, C)
+    flat = bins + nb * torch.arange(c, device=bins.device)[None, :]
+    sentinel = c * nb
+    safe = torch.clamp(labels, 0, c - 1)
+    pos = torch.where(valid, flat.gather(1, safe[:, None])[:, 0], sentinel)
+    every = torch.where(valid[:, None], flat, sentinel)
+    tp = torch.bincount(pos, minlength=sentinel + 1)[:sentinel]
+    n_all = torch.bincount(every.reshape(-1), minlength=sentinel + 1)[:sentinel]
+    return (tp.to(torch.float32).reshape(c, nb),
+            (n_all - tp).to(torch.float32).reshape(c, nb))
 
 
 def ap_from_histograms(tp_hist: np.ndarray, fp_hist: np.ndarray) -> np.ndarray:

@@ -1,4 +1,4 @@
-"""Res16UNet family — Res16UNet34C first.
+"""Res16UNet family: the BasicBlock variants.
 
 Counterpart of ``languagegroundedsemseg_tpu/models/res16unet.py``: a 4-level
 stride-2 sparse encoder and a 4-level transpose-conv decoder with skip
@@ -63,6 +63,13 @@ class Res16UNetBase(nn.Module):
     PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 256, 256, 256)
     LAYERS: Tuple[int, ...] = (2, 2, 2, 2, 2, 2, 2, 2)
     INIT_DIM: int = 32
+    # parameter-name prefixes that stay trainable under --classifier_only
+    # (reference set_classifier_mode, pl_BaselineTrainer.py:411)
+    classifier_trainable_prefixes: Tuple[str, ...] = ("final",)
+    # block8's last relu stripped in every mode (the CLIP variants'
+    # NoReluBlock, models/clip_models.py); representation_only strips it
+    # for any variant
+    STRIP_FINAL_RELU: bool = False
 
     def __init__(self, in_channels: int = 3, out_channels: int = 20,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.02,
@@ -135,9 +142,10 @@ class Res16UNetBase(nn.Module):
             out = torch.relu(getattr(self, f"bntr{4 + d}")(out, masks[lvl - 1]))
             out = torch.cat([out, dec_skips[d]], dim=-1)
             stage = getattr(self, f"block{5 + d}")
-            # representation output: block8's last relu is stripped so raw
-            # features live in the embedding space (NoReluBlock)
-            strip = d == 3 and representation_only
+            # representation output (and the CLIP variants): block8's last
+            # relu is stripped so raw features live in the embedding space
+            # (NoReluBlock)
+            strip = d == 3 and (self.STRIP_FINAL_RELU or representation_only)
             for i, blk in enumerate(stage):
                 out = blk(out, graph, masks[lvl - 1],
                           final_relu=not (strip and i == len(stage) - 1))
@@ -148,9 +156,78 @@ class Res16UNetBase(nn.Module):
         return self.final(features, graph), features
 
 
+# The BasicBlock variants of the reference zoo (JAX
+# models/res16unet.py:241-252, 263-321). Res16UNet50 / 101 (Bottleneck) and
+# the ST variants (d=4) come with the rest of the model zoo.
+
+
+class Res16UNet14(Res16UNetBase):
+    LAYERS: Tuple[int, ...] = (1, 1, 1, 1, 1, 1, 1, 1)
+
+
+class Res16UNet18(Res16UNetBase):
+    LAYERS: Tuple[int, ...] = (2, 2, 2, 2, 2, 2, 2, 2)
+
+
 class Res16UNet34(Res16UNetBase):
     LAYERS: Tuple[int, ...] = (2, 3, 4, 6, 2, 2, 2, 2)
 
 
+class Res16UNet14A(Res16UNet14):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 128, 128, 96, 96)
+
+
+class Res16UNet14A2(Res16UNet14A):
+    LAYERS: Tuple[int, ...] = (1, 1, 1, 1, 2, 2, 2, 2)
+
+
+class Res16UNet14B(Res16UNet14):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 128, 128, 128, 128)
+
+
+class Res16UNet14B2(Res16UNet14B):
+    LAYERS: Tuple[int, ...] = (1, 1, 1, 1, 2, 2, 2, 2)
+
+
+class Res16UNet14B3(Res16UNet14B):
+    LAYERS: Tuple[int, ...] = (2, 2, 2, 2, 1, 1, 1, 1)
+
+
+class Res16UNet14C(Res16UNet14):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 192, 192, 128, 128)
+
+
+class Res16UNet14D(Res16UNet14):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 384, 384, 384, 384)
+
+
+class Res16UNet18A(Res16UNet18):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 128, 128, 96, 96)
+
+
+class Res16UNet18B(Res16UNet18):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 128, 128, 128, 128)
+
+
+class Res16UNet18D(Res16UNet18):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 384, 384, 384, 384)
+
+
+class Res16UNet34A(Res16UNet34):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 128, 64, 64)
+
+
+class Res16UNet34B(Res16UNet34):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 128, 64, 32)
+
+
 class Res16UNet34C(Res16UNet34):
     PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 128, 96, 96)
+
+
+class Res16UNet34C200(Res16UNet34):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 128, 96, 200)
+
+
+class Res16UNet34C100(Res16UNet34):
+    PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 128, 128, 100)

@@ -94,6 +94,10 @@ SMEM_LIMIT_BYTES = 232448
 _DW_BM, _DW_BN, _DW_BK = 96, 128, 64
 DW_RESIDENT_BLOCKS = 132 * 2
 DW_MIN_CHUNKS = 8
+# ceiling on a dw launch's f32 split partials (n_split x 3C x n_cols *
+# c_out): at the wide variants' shapes (34D's (1536, 512) at L0) the
+# waves alone would ask for 512 splits, 12.9 GB written and read back
+DW_PART_BYTES = 256 << 20
 
 
 def reset_launch_counts() -> None:
@@ -433,13 +437,17 @@ def _dw_splits(cap: int, cw: int, n_total: int) -> tuple:
     number of _DW_BK-row chunks. The count minimises waves x rows per
     split, the time of an SM when every resident block walks one split,
     and takes the fewest splits among equals (less for the second pass to
-    add). A function of the shapes alone, so the sum order is fixed."""
+    add), among the counts whose partials fit DW_PART_BYTES (one split
+    always does). A function of the shapes alone, so the sum order is
+    fixed."""
     tiles = -(-cw // _DW_BM) * -(-n_total // _DW_BN)
     chunks = -(-cap // _DW_BK)
     best = None
     for want in range(1, max(1, chunks // DW_MIN_CHUNKS) + 1):
         rows = -(-chunks // want) * _DW_BK
         n_split = -(-cap // rows)
+        if n_split > 1 and n_split * cw * n_total * 4 > DW_PART_BYTES:
+            break  # n_split grows with want
         cost = -(-tiles * n_split // DW_RESIDENT_BLOCKS) * rows
         if best is None or cost < best[0]:
             best = (cost, rows, n_split)

@@ -98,7 +98,9 @@ def make_train_step(model, optimizer, objective: Objective,
         batch = batch.replace(graph=with_inverse_anchors(batch.graph))
         gen = None if generator is None else fold_in(generator, state.step)
         model.train()
-        optimizer.zero_grad()
+        # every parameter's gradient, also those the optimizer does not
+        # update (classifier_only), so grad_norm reads this step's only
+        model.zero_grad(set_to_none=True)
         out_a, out_b = model(batch.feats, batch.graph,
                              representation_only=representation_only)
         row_mask = batch.graph.levels[0].mask()
@@ -121,14 +123,16 @@ def make_eval_step(model, representation_only: bool = False,
                    device="cuda") -> Callable:
     """Build ``eval(batch) -> (logits_or_features, features)``.
 
-    Moves ``model`` to ``device`` in eval mode (BatchNorm reads its running
-    statistics) and runs the forward under ``torch.inference_mode()``. A
-    host batch (numpy leaves) is moved to the device first; tensors already
-    there are used as they are."""
+    Moves ``model`` to ``device`` and runs the forward in eval mode
+    (BatchNorm reads its running statistics; set on every call, since a
+    train step between calls puts the model in train mode) under
+    ``torch.inference_mode()``. A host batch (numpy leaves) is moved to the
+    device first; tensors already there are used as they are."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
     def step(batch: TrainBatch):
+        model.eval()
         with torch.inference_mode():
             batch = batch.to(dev).decompact()
             return model(batch.feats, batch.graph,

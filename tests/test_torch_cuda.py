@@ -301,6 +301,37 @@ def test_dw_kernel_ragged_last_split(cw, c_out):
     _dw_check(args, cw, c_out)
 
 
+# (3C, c_out) of the variants' widest and odd convs: 14D / 18D block5's
+# first conv (384 + 128 inputs) and its second; 34C200 block8's two convs;
+# 34C100 block8's, whose 100 outputs onehot_window_conv pads to 104 and
+# whose T3 widths (396, 300) _dw_pad_cols pads to multiples of 8; 34D's
+# block8 (512 + 32 inputs, 512 outputs) and block7 (256 + 64, 256)
+VARIANT_DW_SHAPES = [(1536, 384), (1152, 384), (696, 200), (600, 200),
+                     (396, 104), (300, 104), (1632, 512), (1536, 512),
+                     (960, 256), (768, 256)]
+# sel_fwd widths the variants add: 34C100's forward (104) and block8 dX
+# (132 -> 136), 34C200's forward (200) and block8 dX (232), 34D's block8
+# forward (512) and dX (544)
+VARIANT_SEL_WIDTHS = [104, 136, 200, 232, 512, 544]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw,c_out", VARIANT_DW_SHAPES)
+def test_dw_kernel_at_the_variants_widths(cw, c_out):
+    """dw at the Res16UNet variants' widths on the 4,096-row builder map,
+    10% of the inverse anchors scrambled, held to its plain version."""
+    test_dw_kernel_matches_plain_version(cw, c_out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_run", VARIANT_SEL_WIDTHS)
+def test_sel_fwd_kernel_at_the_variants_widths(c_run):
+    """sel_fwd at the widths the variants add, bit for bit, on the builder
+    map and on seeded L0-sized inputs (18,432 rows)."""
+    test_sel_fwd_kernel_matches_plain_version(c_run)
+    _sel_check(_sel_synthetic(18432, c_run, 256, 512, 8, _card(), seed=c_run))
+
+
 @pytest.mark.cuda
 def test_dw_kernel_all_out_of_window_gives_zeros():
     """Every inverse anchor outside its window (starts at the far end of
@@ -589,6 +620,37 @@ def test_onehot_window_conv_autograd_on_card():
     assert oc.launch_counts["dw"] == before["dw"] + 1
     want = run("cpu")
     for a, b in zip(got, want):
+        assert _rel(a, b) <= CARD_VS_CPU_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out", [(132, 100), (232, 200), (544, 512)])
+def test_onehot_window_conv_autograd_at_the_variants_widths(c_in, c_out):
+    """34C100's, 34C200's and 34D's block8 first conv through the autograd
+    Function on the card (widths padded to multiples of 8 and sliced back
+    by the wrapper) against the CPU's plain path."""
+    dev = _card()
+    rng, g = _graph(6, 3000, (4096,), down=False)
+    m = g.gmaps["k3"]
+    assert m.tile > 0
+    x = np.zeros((4096, c_in), np.float32)
+    n = int(g.levels[0].num)
+    x[:n] = rng.normal(size=(n, c_in))
+    w = (rng.normal(size=(27, c_in, c_out)) * 0.05).astype(np.float32)
+    ct = rng.normal(size=(4096, c_out)).astype(np.float32)
+
+    def run(device):
+        xt = torch.from_numpy(x).to(device).requires_grad_(True)
+        wt = torch.from_numpy(w).to(device).requires_grad_(True)
+        out = oc.onehot_window_conv(xt, wt, m.to(device))
+        (out * torch.from_numpy(ct).to(device)).sum().backward()
+        return [t.detach().cpu() for t in (out, xt.grad, wt.grad)]
+
+    got = run(dev)
+    torch.cuda.synchronize()
+    want = run("cpu")
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
         assert _rel(a, b) <= CARD_VS_CPU_RTOL
 
 

@@ -75,6 +75,29 @@ def test_waves_keep_resident_blocks_busy(cap, cw, n_total):
     assert tiles * cap >= 0.9 * waves * R * rows
 
 
+# (cap, 3C, c_out) of the wide variants' convs (14D / 18D block5, 34C200
+# and 34D block8, 34D block7) at L0 capacities from a training batch to
+# the main path's
+WIDE = [(cap, cw, c_out) for cap in (131072, 262144, 589824)
+        for cw, c_out in ((1536, 384), (1152, 384), (696, 200), (1632, 512),
+                          (1536, 512), (960, 256))]
+
+
+@pytest.mark.parametrize("cap,cw,c_out", WIDE)
+def test_wide_shapes_keep_partials_within_budget(cap, cw, c_out):
+    """The split partials (n_split x 3C x 8 * c_out, f32) stay within
+    DW_PART_BYTES (the waves alone asked up to 12.9 GB at 34D's widths),
+    every row is still in one split, and the resident slots stay busy."""
+    geo = oc.dw_geometry(cap, cw, c_out, 8)
+    n_total = 8 * c_out
+    assert geo["splits"] * geo["cw_kernel"] * n_total * 4 <= oc.DW_PART_BYTES
+    rows, n_split = geo["rows_per_split"], geo["splits"]
+    assert (n_split - 1) * rows < cap <= n_split * rows
+    tiles = _tiles(geo["cw_kernel"], n_total)
+    waves = -(-tiles * n_split // R)
+    assert tiles * cap >= 0.9 * waves * R * rows
+
+
 def test_geometry_pads_conv0_and_matches_splits():
     geo = oc.dw_geometry(589824, 9, 32, 8)
     assert geo["cw_kernel"] == 16
