@@ -20,7 +20,12 @@ the card loader's batches held equal to a CPU loader's. Then the training
 program a user runs: ``cli.main.main`` with the flags of
 outputs/learning_curve_r5/config.json, two epochs in the baseline and in
 the language-grounded mode and a resume one epoch on, each run's launches
-checked against every train step and eval forward it made. Each phase
+checked against every train step and eval forward it made. Then instance
+segmentation as a user runs it: ``cli.main.main`` with the flags of
+scripts/train_insseg.sh (InstanceRes16UNet, a 200-class synthetic
+stand-in for the Scannet200 instance scenes), 12 steps and the
+validation of every val scene, launches checked the same way, one insseg
+train step card vs CPU and the device cluster ops against the host. Each phase
 prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. It needs a CUDA device and imports
@@ -1014,8 +1019,9 @@ def parity_batch(device, seed: int = 1):
     return builder.build([voxelize_scene(rng, PARITY_POINTS)], device=device)
 
 
-def scaled_model(device, seed: int = 1):
-    """Res16UNet34C (200 classes) with well-conditioned random weights:
+def scaled_model(device, seed: int = 1, model_cls=None):
+    """Res16UNet34C (200 classes; or ``model_cls``, a subclass of
+    Res16UNetBase) with well-conditioned random weights:
     kernels N(0, 0.36 / fan_in), BN scales and running variances in
     [0.6, 1.4], biases and running means 0.1 * N(0, 1). Activations stay
     O(1) through the depth. (The bench's weights make the net chaotic —
@@ -1024,7 +1030,7 @@ def scaled_model(device, seed: int = 1):
     port.)"""
     from languagegroundedsemseg_torch.models.res16unet import Res16UNet34C
 
-    model = Res16UNet34C(out_channels=200, device=device)
+    model = (model_cls or Res16UNet34C)(out_channels=200, device=device)
     rng = np.random.default_rng(seed)
     sd = {}
     for name, t in model.state_dict().items():
@@ -1748,6 +1754,391 @@ def phase_trainer_path() -> dict:
     return rec
 
 
+# phase insseg_path: the flags of scripts/train_insseg.sh through the
+# port's command line (InstanceRes16UNet = Res16UNet34C + the offset head,
+# the Scannet200 head, batch 4, lr 0.02, SGD, 2 workers, seed 42),
+# INSSEG_STEPS steps, then the CLI's validation of every val scene
+INSSEG_ARGV = [
+    "--dataset", "Scannet200Instance2cmDataset", "--model", "InstanceRes16UNet",
+    "--batch_size", "4", "--lr", "0.02", "--optimizer", "SGD",
+    "--num_workers", "2", "--seed", "42"]
+INSSEG_STEPS = 12  # --max_iter
+# the synthetic stand-in for the ScanNet200 .pth scenes: trainer_path's
+# scene count and size
+INSSEG_SCENES, INSSEG_POINTS = 8, 60_000
+INSSEG_LOSSES = ("semantic_loss", "offset_norm_loss", "offset_dir_loss")
+# radius_graph_device on the card: at most this many of a scene's voxels
+RADIUS_GRAPH_POINTS = 4096
+
+
+def insseg_dataset(points: int = None):
+    """The port's SyntheticInstanceDataset at the Scannet200 head (200
+    classes), INSSEG_SCENES scenes of ``points`` (INSSEG_POINTS) points."""
+    from languagegroundedsemseg_torch.insseg.dataset import SyntheticInstanceDataset
+
+    class Synthetic200Instance(SyntheticInstanceDataset):
+        NUM_CLASSES = 200
+        NUM_SCENES = INSSEG_SCENES
+        POINTS_PER_SCENE = points or INSSEG_POINTS
+
+    return Synthetic200Instance
+
+
+def _recording_insseg_trainer():
+    """An ``InssegTrainer`` that keeps, for each of its train steps and
+    eval forwards, the launches ``expected_launches`` gives for that
+    batch, each step's losses and time (from the previous step's or the
+    fit's start to the step's synced end), and each validation's split:
+    the card (eval forward, synced), the host clustering, the instance
+    evaluation, and the rest (scene load, graph build, back-projection).
+    The CLI's fit never validates (its ``val_every`` is 0, as in the JAX
+    CLI); this fit validates once, at its last step, so the dual-monitor
+    checkpoints are written. Nothing else changes what runs."""
+    from languagegroundedsemseg_torch.insseg import trainer as insseg_trainer
+
+    class RecordingInssegTrainer(insseg_trainer.InssegTrainer):
+        instances = []
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            RecordingInssegTrainer.instances.append(self)
+            self.want = {"sel_fwd": 0, "csum": 0, "dw": 0}
+            self.step_want, self.eval_want = [], []  # each batch's share
+            self.n_train = self.n_eval = 0
+            self.losses = {}  # the step's metrics: the losses and grad_norm
+            self.step_s, self.val_records = [], []
+            self._mark, self._split = None, None
+            train, evaluate = self.p_train_step, self.p_eval
+            cluster = self.clusterer.get_instances
+
+            def train_step(state, batch):
+                want = expected_launches(self.model, batch.graph, True)
+                for k, v in want.items():
+                    self.want[k] += v
+                self.step_want.append(want)
+                out = train(state, batch)
+                for k, v in out[1].items():
+                    self.losses.setdefault(k, []).append(float(v))  # syncs
+                now = time.perf_counter()
+                self.step_s.append(now - self._mark)
+                self._mark = now
+                self.n_train += 1
+                return out
+
+            def eval_step(batch):
+                t0 = time.perf_counter()
+                batch = batch.to(self.device)
+                want = expected_launches(self.model, batch.graph)
+                for k, v in want.items():
+                    self.want[k] += v
+                self.eval_want.append(want)
+                out = evaluate(batch)
+                torch.cuda.synchronize()
+                self._split["card_s"] += time.perf_counter() - t0
+                self.n_eval += 1
+                return out
+
+            def get_instances(vertices, scores):
+                t0 = time.perf_counter()
+                out = cluster(vertices, scores)
+                self._split["cluster_s"] += time.perf_counter() - t0
+                self._split["proposals"].append(len(out))
+                self._split["voxels"].append(len(vertices))
+                return out
+
+            self.p_train_step, self.p_eval = train_step, eval_step
+            self.clusterer.get_instances = get_instances
+
+        def validate(self, *args, **kwargs):
+            self._split = {"card_s": 0.0, "cluster_s": 0.0, "evaluate_s": 0.0,
+                           "proposals": [], "voxels": []}
+            evaluate = insseg_trainer.InstanceEvaluator.evaluate
+
+            def timed(ev):
+                t0 = time.perf_counter()
+                out = evaluate(ev)
+                self._split["evaluate_s"] += time.perf_counter() - t0
+                return out
+
+            t0 = time.perf_counter()
+            with mock.patch.object(insseg_trainer.InstanceEvaluator, "evaluate", timed):
+                out = super().validate(*args, **kwargs)
+            total = time.perf_counter() - t0
+            sp = self._split
+            host = total - sp["card_s"]
+            self.val_records.append({
+                "metrics": out, "s": total, "card_s": sp["card_s"],
+                "host_s": host, "host_share": host / total,
+                "cluster_s": sp["cluster_s"], "evaluate_s": sp["evaluate_s"],
+                "load_build_backproject_s": host - sp["cluster_s"] - sp["evaluate_s"],
+                "scenes": len(sp["voxels"]), "voxels": sp["voxels"],
+                "proposals": sp["proposals"],
+                "proposals_per_scene": float(np.mean(sp["proposals"]))})
+            self._mark = time.perf_counter()
+            return out
+
+        def fit(self, max_steps: int = 100, log_every: int = 10, val_every: int = 0,
+                max_val_scenes=None):
+            t0 = self._mark = time.perf_counter()
+            out = super().fit(max_steps, log_every, val_every or max_steps, max_val_scenes)
+            torch.cuda.synchronize()
+            self.fit_s = time.perf_counter() - t0
+            return out
+
+    return RecordingInssegTrainer
+
+
+def insseg_parity_batch(device):
+    """One val scene of INSSEG's synthetic dataset at PARITY_POINTS points
+    (no augmentation), built at PARITY_CAP with the instance extras."""
+    from languagegroundedsemseg_torch.config import Config
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.insseg.trainer import insseg_extras
+    from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+
+    ds = insseg_dataset(PARITY_POINTS)(Config(ignore_label=255), phase="val",
+                                       augment_data=False)
+    item = ds.get_item(0, np.random.default_rng(1))
+    feats = item["feats"] / 255.0 - 0.5
+    builder = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=PARITY_CAP)
+    batch = builder.build([(item["coords"], feats, item["labels"])],
+                          [insseg_extras(item)], device=device)
+    return batch, ds.VOXEL_SIZE
+
+
+def _insseg_step(model, device, noise_seed=None):
+    """Outputs and losses of the parity batch through ``model``: the eval
+    forward's (offsets, logits), then one insseg SGD step's train-mode
+    forward (caught by a hook) and losses. ``noise_seed`` moves the input
+    features by 1e-6, relative, drawn from that seed."""
+    from languagegroundedsemseg_torch.insseg.trainer import (
+        make_insseg_eval_step,
+        make_insseg_objective,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    batch, voxel_size = insseg_parity_batch(device)
+    if noise_seed is not None:
+        dev = batch.feats.device
+        gen = torch.Generator(device=dev).manual_seed(noise_seed)
+        noise = torch.randn(batch.feats.shape, generator=gen, device=dev)
+        batch = batch.replace(feats=batch.feats * (1 + 1e-6 * noise))
+    valid = batch.graph.levels[0].valid.cpu() > 0
+    offsets, probs, _ = make_insseg_eval_step(model, 200, device=device)(batch)
+    out = {"eval_offsets": offsets.cpu()[valid], "eval_probs": probs.cpu()[valid]}
+    opt = sgd_torch(model.parameters(), 0.02)
+    step = make_train_step(model, opt, make_insseg_objective(voxel_size), device=device)
+    caught = []
+    hook = model.register_forward_hook(lambda _m, _i, o: caught.append(o))
+    try:
+        _, parts = step(TrainState(model, opt), batch)
+    finally:
+        hook.remove()
+    (train_offsets, train_logits, _), = caught
+    out.update(train_offsets=train_offsets.detach().cpu()[valid],
+               train_logits=train_logits.detach().cpu()[valid],
+               **{k: float(v) for k, v in parts.items()})
+    return out
+
+
+def _insseg_gap(a, b) -> dict:
+    """Relative gaps of ``a`` against ``b``: L2 for the outputs, |Δ| / |b|
+    for the losses."""
+    return {k: (_rel_l2(a[k], b[k]) if torch.is_tensor(b[k])
+                else abs(a[k] - b[k]) / abs(b[k])) for k in b}
+
+
+def insseg_card_vs_cpu() -> dict:
+    """One insseg train step on the card against the CPU's plain path:
+    InstanceRes16UNet with conditioned weights, the parity batch.
+
+    The train-mode forward of these weights is chaotic: batch statistics
+    renormalize every layer, so a rounding difference grows with depth,
+    and a 1e-6 relative change of the input features moves the card's
+    train-mode offsets and logits by ~2e-2 and its offset losses by
+    ~1e-4 (the semantic Res16UNet34C does the same; PERF.md §6).
+    So the phase holds to the parity tolerances what these weights let
+    one hold: the eval forward's offsets and softmax probabilities, and
+    the step's semantic and total losses. The step's train-mode offsets
+    and logits and its offset-norm and direction losses are held to twice
+    the largest gap that 1e-6 input noise (three draws) makes on the card
+    itself, or the tolerance where that is larger."""
+    from languagegroundedsemseg_torch.insseg.model import InstanceRes16UNet
+
+    base = scaled_model("cuda", model_cls=InstanceRes16UNet)
+    t0 = time.perf_counter()
+    card = _insseg_step(copy.deepcopy(base), "cuda")
+    cpu = _insseg_step(copy.deepcopy(base).to("cpu"), "cpu")
+    gaps = [_insseg_gap(_insseg_step(copy.deepcopy(base), "cuda", seed), card)
+            for seed in range(3)]
+    noise = {k: max(g[k] for g in gaps) for k in gaps[0]}
+    gap = _insseg_gap(card, cpu)
+    limit = {"eval_offsets": PARITY_RTOL, "eval_probs": PARITY_RTOL,
+             "semantic_loss": TRAIN_LOSS_RTOL, "loss": TRAIN_LOSS_RTOL}
+    for k in ("train_offsets", "train_logits"):
+        limit[k] = max(PARITY_RTOL, 2 * noise[k])
+    for k in ("offset_norm_loss", "offset_dir_loss"):
+        limit[k] = max(TRAIN_LOSS_RTOL, 2 * noise[k])
+    rec = {"capacity": PARITY_CAP, "n_voxels": int(card["eval_offsets"].shape[0]),
+           "losses": {k: card[k] for k in INSSEG_LOSSES + ("loss",)},
+           "card_vs_cpu": gap, "card_input_noise_1e-6": noise, "limits": limit,
+           "seconds": time.perf_counter() - t0}
+    if not all(gap[k] <= limit[k] for k in limit):
+        raise AssertionError(f"insseg card vs CPU out of tolerance: {rec}")
+    return rec
+
+
+def cluster_ops_on_card(ds) -> dict:
+    """The device cluster ops on the card, on val scene 0 (no
+    augmentation): connected_components over its radius_graph_host table
+    (as wide as its largest neighborhood, so nothing is truncated) gives
+    scipy's partition; radius_graph_device on RADIUS_GRAPH_POINTS of its
+    voxels equals its CPU run; FPS over its largest instance equals the
+    CPU's."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components as scipy_components
+
+    from languagegroundedsemseg_torch.ops import cluster as oc_cluster
+    from languagegroundedsemseg_torch.ops.points import furthest_point_sample
+
+    item = ds.get_item(0, np.random.default_rng((999, 0)))
+    pts = item["coords"].astype(np.float32) * ds.VOXEL_SIZE
+    lab = item["labels"]
+    n = len(pts)
+    edges = oc_cluster.radius_edges_host(pts, 0.03, lab)
+    degree = int(np.bincount(edges.ravel(), minlength=n).max())
+    table = oc_cluster.radius_graph_host(pts, 0.03, degree, lab)
+    t0 = time.perf_counter()
+    comp = oc_cluster.connected_components(
+        torch.from_numpy(table).cuda(), torch.ones(n, dtype=torch.int32).cuda())
+    torch.cuda.synchronize()
+    cc_s = time.perf_counter() - t0
+    _, sc = scipy_components(coo_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])),
+                                        shape=(n, n)), directed=False)
+    root = np.full(sc.max() + 1, n)
+    np.minimum.at(root, sc, np.arange(n))  # each component's lowest row
+    comp = comp.cpu().numpy()
+    partition_equal = bool((comp == root[sc]).all())
+
+    sub = torch.from_numpy(pts[:RADIUS_GRAPH_POINTS])
+    sub_lab = torch.from_numpy(lab[:RADIUS_GRAPH_POINTS].astype(np.int64))
+    rg_card = oc_cluster.radius_graph_device(sub.cuda(), sub_lab.cuda(), None, 32)
+    rg_cpu = oc_cluster.radius_graph_device(sub, sub_lab, None, 32)
+    rg_equal = bool(torch.equal(rg_card.cpu(), rg_cpu))
+
+    inst = item["original"]["instance"]
+    ids, counts = np.unique(inst[inst >= 0], return_counts=True)
+    obj = item["original"]["xyz"][inst == ids[np.argmax(counts)]]
+    k = max(len(obj) // 10, 1)
+    fps_card = furthest_point_sample(torch.from_numpy(obj).cuda(), k)
+    fps_cpu = furthest_point_sample(torch.from_numpy(obj), k)
+    fps_equal = bool(torch.equal(fps_card.cpu(), fps_cpu))
+    rec = {"voxels": n, "edges": len(edges), "max_degree": degree,
+           "components": int(sc.max() + 1), "connected_components_s": cc_s,
+           "partition_equal_scipy": partition_equal,
+           "radius_graph_points": len(sub), "radius_graph_equal_cpu": rg_equal,
+           "radius_graph_edges": int((rg_cpu >= 0).sum()),
+           "fps_points": len(obj), "fps_samples": k, "fps_equal_cpu": fps_equal}
+    if not (partition_equal and rg_equal and fps_equal):
+        raise AssertionError(f"device cluster ops disagree with the host: {rec}")
+    return rec
+
+
+def phase_insseg_path() -> dict:
+    """Instance segmentation as a user runs it, on the card:
+    ``cli.main.main`` with scripts/train_insseg.sh's flags routes the
+    Scannet200 instance dataset (here its synthetic stand-in, patched into
+    the port's registry) to ``InssegTrainer``: INSSEG_STEPS SGD steps of
+    InstanceRes16UNet from the production loader, then validation of
+    every val scene (eval forward on the card; vote shift, clustering and
+    the ScanNet instance evaluator on the host). Launches equal the sum of
+    ``expected_launches`` over every train step and eval forward; losses
+    finite; both best checkpoints load with ``weights_only=True``. Then
+    one insseg train step card vs CPU, and the device cluster ops against
+    the host."""
+    from languagegroundedsemseg_torch.cli.main import main as cli_main
+    from languagegroundedsemseg_torch.config import Config
+    from languagegroundedsemseg_torch.insseg import dataset as insseg_dataset_mod
+    from languagegroundedsemseg_torch.insseg import trainer as insseg_trainer
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    recording = _recording_insseg_trainer()
+    synthetic = insseg_dataset()
+    with tempfile.TemporaryDirectory(prefix="lgs_insseg_path_") as tmp:
+        argv = INSSEG_ARGV + ["--max_iter", str(INSSEG_STEPS), "--log_dir", tmp]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        oc.reset_launch_counts()
+        oa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(insseg_trainer, "InssegTrainer", recording), \
+                mock.patch.dict(insseg_dataset_mod._INSTANCE_DATASETS,
+                                {"Scannet200Instance2cmDataset": synthetic}):
+            metrics = cli_main(argv)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches, ablation = dict(oc.launch_counts), dict(oa.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        (tr,) = recording.instances
+        files = sorted(os.listdir(tmp))
+        best = {}
+        for monitor in ("val_miou", "val_map05"):
+            found = [f for f in files if f.startswith(f"best_{monitor}=")
+                     and f.endswith(".ckpt")]
+            if not found:
+                raise AssertionError(f"insseg: no best_{monitor} checkpoint in {files}")
+            blob = torch.load(os.path.join(tmp, found[0]), map_location="cpu",
+                              weights_only=True)
+            best[monitor] = {"file": found[0], "step": int(blob["step"]),
+                             "tensors": len(blob["model"])}
+
+    if launches != tr.want:
+        raise AssertionError(f"insseg: launches {launches}, expected {tr.want} "
+                             f"({tr.n_train} train steps, {tr.n_eval} eval forwards)")
+    if min(launches.values()) == 0 or any(ablation.values()):
+        raise AssertionError(f"insseg: launches {launches}, ablation {ablation}")
+    if tr.state.step != INSSEG_STEPS or tr.n_train != INSSEG_STEPS:
+        raise AssertionError(f"insseg: step {tr.state.step}, {tr.n_train} train steps")
+    if not all(np.isfinite(v).all() for v in tr.losses.values()):
+        raise AssertionError(f"insseg: losses {tr.losses}")
+    n_val = len(tr.val_dataset)
+    if [r["scenes"] for r in tr.val_records] != [n_val, n_val]:
+        raise AssertionError(f"insseg: validations {tr.val_records}")
+    if not 0.0 <= metrics["val_miou"] <= 1.0:
+        raise AssertionError(f"insseg: metrics {metrics}")
+
+    after_first = tr.step_s[1:]
+    rec = {"phase": "insseg_path", "argv": INSSEG_ARGV,
+           "dataset": {"scenes": INSSEG_SCENES, "points_per_scene": INSSEG_POINTS,
+                       "classes": 200},
+           "steps": tr.n_train, "eval_forwards": tr.n_eval, "main_s": main_s,
+           "fit_s": tr.fit_s,
+           "scenes_per_s": tr.config.batch_size * len(after_first) / sum(after_first),
+           "step_s": tr.step_s, "validations": tr.val_records,
+           "validate_s": tr.val_records[-1]["s"],
+           "validate_host_share": tr.val_records[-1]["host_share"],
+           "fit_validation_equals_cli": all(
+               np.isclose(v, metrics[k], rtol=0, atol=0, equal_nan=True)
+               for k, v in tr.val_records[0]["metrics"].items()),
+           "max_memory_allocated": peak,
+           "first_losses": {k: v[0] for k, v in tr.losses.items()},
+           "last_losses": {k: v[-1] for k, v in tr.losses.items()},
+           "metrics": metrics, "best_checkpoints": best,
+           "loader_counters": tr.train_loader.counters.snapshot(),
+           "launches": launches, "expected_launches": tr.want,
+           "expected_per_train_step": tr.step_want,
+           "expected_per_eval_forward": tr.eval_want,
+           "ablation_launches": ablation}
+    rec["card_vs_cpu"] = insseg_card_vs_cpu()
+    rec["cluster_ops"] = cluster_ops_on_card(
+        synthetic(Config(ignore_label=255), phase="val", augment_data=False))
+    emit(rec)
+    return rec
+
+
 _REPLACES = {
     "sel_fwd": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:77", 96),
     "csum": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:618", 32),
@@ -1795,6 +2186,7 @@ def main() -> int:
     phase_train_parity()
     e2e = phase_e2e_path()
     trainer = phase_trainer_path()
+    insseg = phase_insseg_path()
 
     # one row per kernel, at its main forward width (dw: block8's convs);
     # launches per train step, beside the forward's
@@ -1808,6 +2200,7 @@ def main() -> int:
             "launches_per_forward": main["launches"][name],
             "launches_e2e": e2e["launches"][name],
             "launches_trainer": trainer["launches"][name],
+            "launches_insseg": insseg["launches"][name],
             "width": width, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -1825,6 +2218,7 @@ def main() -> int:
             "launches_per_forward": main["ablation_launches"][name],
             "launches_e2e": e2e["ablation_launches"][name],
             "launches_trainer": trainer["ablation_launches"][name],
+            "launches_insseg": insseg["ablation_launches"][name],
             "launches_per_ablation": ablation["launches"][name],
             "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -20,7 +20,9 @@ from languagegroundedsemseg_torch.ops.onehot_conv import with_inverse_anchors
 from languagegroundedsemseg_torch.sparse.types import ConvGraph, leaf_to
 from languagegroundedsemseg_torch.train.state import TrainState
 
-# objective(logits, features, batch, generator, row_mask) -> (loss, metrics)
+# objective(*model outputs, batch, generator, row_mask) -> (loss, metrics):
+# (logits, features, ...) for the semantic models, (offsets, logits,
+# features, ...) for the instance model
 Objective = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 
@@ -101,10 +103,10 @@ def make_train_step(model, optimizer, objective: Objective,
         # every parameter's gradient, also those the optimizer does not
         # update (classifier_only), so grad_norm reads this step's only
         model.zero_grad(set_to_none=True)
-        out_a, out_b = model(batch.feats, batch.graph,
-                             representation_only=representation_only)
+        outputs = model(batch.feats, batch.graph,
+                        representation_only=representation_only)
         row_mask = batch.graph.levels[0].mask()
-        loss, metrics = objective(out_a, out_b, batch, gen, row_mask)
+        loss, metrics = objective(*outputs, batch, gen, row_mask)
         loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(

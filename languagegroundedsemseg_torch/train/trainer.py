@@ -14,10 +14,11 @@ metric accumulation on the device, LR scheduling incl ReduceLROnPlateau,
 best-checkpoint tracking, and resume. Every tensor lives on ``device`` (the
 card unless the caller asks for the CPU).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue 1 item: the CRF wrappers (item 6), the classifier mode and its
-feature-resampling stage (item 7), instance segmentation (item 8) and more
-than one device (item 5).
+Instance datasets train with ``insseg.trainer.InssegTrainer``; this
+trainer refuses them. Not ported yet, each raising ``NotImplementedError``
+with its ROADMAP Queue 1 item: the CRF wrappers (item 6), the classifier
+mode and its feature-resampling stage (item 7) and more than one device
+(item 5).
 """
 
 from __future__ import annotations
@@ -74,8 +75,9 @@ def select_mode(config: Config) -> str:
 def _not_ported(config: Config, mode: str) -> None:
     """Raise for what the port does not run yet, naming its ROADMAP item."""
     if mode == "insseg":
-        raise NotImplementedError(
-            "instance segmentation is not ported yet (ROADMAP Queue 1, item 8)")
+        raise ValueError(
+            f"{config.dataset} is an instance dataset: instance segmentation "
+            "trains with insseg.trainer.InssegTrainer (cli.main routes it there)")
     if mode == "classifier" or config.classifier_resample_features:
         raise NotImplementedError(
             "the classifier mode and classifier_resample_features are not "

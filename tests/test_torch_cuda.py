@@ -15,7 +15,9 @@ variants kernel's full mode, which rounds each column's product to bf16
 (1e-2). The autograd test compares a conv's gradients on the
 card with the CPU's plain path: both run bf16 projection GEMMs, whose bf16
 rounding of P may differ by one unit between the two backends, so it holds
-them to 1e-2 of max |ref|.
+them to 1e-2 of max |ref|. The instance segmentation tests hold
+InstanceRes16UNet14A's eval forward and one train step on the card to the
+CPU's, and the point and cluster ops to the CPU's bit for bit.
 """
 
 import numpy as np
@@ -687,3 +689,117 @@ def test_loader_batches_on_the_card_equal_the_cpu_loaders():
         for it in its:
             it.close()
     assert loaders[0]._copy_stream is not None
+
+
+def _insseg_batch(device):
+    """One val scene of the synthetic instance dataset (4,000 points, no
+    augmentation) at capacity 4,096, with the instance extras."""
+    from languagegroundedsemseg_torch.config import Config
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.insseg.dataset import SyntheticInstanceDataset
+    from languagegroundedsemseg_torch.insseg.trainer import insseg_extras
+    from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+
+    ds = SyntheticInstanceDataset(Config(ignore_label=255), phase="val", augment_data=False)
+    item = ds.get_item(0, np.random.default_rng(0))
+    builder = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=4096)
+    return builder.build([(item["coords"], item["feats"] / 255.0 - 0.5, item["labels"])],
+                         [insseg_extras(item)], device=device)
+
+
+def _insseg_run(model, device, noise_seed=None):
+    """(eval offsets, eval probs, confusion counts, step losses) of one
+    eval forward and one insseg SGD step; ``noise_seed`` moves the input
+    features by 1e-6, relative."""
+    from languagegroundedsemseg_torch.insseg.trainer import (
+        make_insseg_eval_step,
+        make_insseg_objective,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    batch = _insseg_batch(device)
+    if noise_seed is not None:
+        gen = torch.Generator(device=device).manual_seed(noise_seed)
+        noise = torch.randn(batch.feats.shape, generator=gen, device=device)
+        batch = batch.replace(feats=batch.feats * (1 + 1e-6 * noise))
+    offsets, probs, hist = make_insseg_eval_step(model, 20, device=device)(batch)
+    opt = sgd_torch(model.parameters(), 0.02)
+    _, parts = make_train_step(model, opt, make_insseg_objective(0.02), device=device)(
+        TrainState(model, opt), batch)
+    valid = batch.graph.levels[0].valid.cpu() > 0
+    return (offsets.cpu()[valid], probs.cpu()[valid], hist.cpu(),
+            {k: float(v) for k, v in parts.items()})
+
+
+@pytest.mark.cuda
+def test_insseg_forward_and_train_step_on_card_match_cpu():
+    """InstanceRes16UNet14A on the card against the CPU's plain path, same
+    weights and batch: the eval forward's offsets and probabilities within
+    1e-2 relative L2 and its confusion counts' total equal; each loss of
+    one train step within 1e-4, or within twice what a 1e-6 relative
+    input change (three draws) moves it on the card where that is more:
+    batch statistics make the train-mode forward chaotic at random
+    weights (PERF.md §6)."""
+    import copy
+
+    from languagegroundedsemseg_torch.insseg.model import InstanceRes16UNet14A
+
+    dev = _card()
+    base = InstanceRes16UNet14A(out_channels=20, device="cpu",
+                                generator=torch.Generator().manual_seed(0))
+    go, gp, gh_, gl = _insseg_run(copy.deepcopy(base).to(dev), dev)
+    wo, wp, wh, wl = _insseg_run(copy.deepcopy(base), torch.device("cpu"))
+    for got, want in ((go, wo), (gp, wp)):
+        assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-2
+    assert int(gh_.sum()) == int(wh.sum())
+    noisy = [_insseg_run(copy.deepcopy(base).to(dev), dev, s)[3] for s in range(3)]
+    for k in ("semantic_loss", "offset_norm_loss", "offset_dir_loss", "loss"):
+        noise = max(abs(n[k] - gl[k]) for n in noisy)
+        assert abs(gl[k] - wl[k]) <= max(1e-4 * abs(wl[k]), 2 * noise), (k, gl[k], wl[k])
+
+
+@pytest.mark.cuda
+def test_cluster_ops_on_card_equal_cpu():
+    """FPS, ball query, radius_graph_device (under TF32) and
+    connected_components (a radius graph, and a reversed chain the
+    64-sweep cap leaves unconverged) give the CPU's results bit for bit;
+    kNN its indices, and its distances within 1e-6."""
+    from languagegroundedsemseg_torch.ops import cluster as pc
+    from languagegroundedsemseg_torch.ops.points import ball_query, furthest_point_sample, knn
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(0, 0.3, (2000, 3)).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, 3, 2000))
+    assert torch.equal(furthest_point_sample(pts.to(dev), 200).cpu(),
+                       furthest_point_sample(pts, 200))
+    (gd, gi), (wd, wi) = knn(pts[:100].to(dev), pts.to(dev), 8), knn(pts[:100], pts, 8)
+    assert torch.equal(gi.cpu(), wi)
+    assert float((gd.cpu() - wd).abs().max()) <= 1e-6  # the CPU-vs-JAX bound
+    assert torch.equal(ball_query(pts[:100].to(dev), pts.to(dev), 0.05, 16).cpu(),
+                       ball_query(pts[:100], pts, 0.05, 16))
+    # TF32 on: the squared distances do not go through a matmul
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        table = pc.radius_graph_device(pts.to(dev), lab.to(dev), None, 32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want = pc.radius_graph_device(pts, lab, None, 32)
+    assert torch.equal(table.cpu(), want)
+    valid = torch.ones(2000, dtype=torch.int32)
+    assert torch.equal(pc.connected_components(table, valid.to(dev)).cpu(),
+                       pc.connected_components(want, valid))
+    perm = np.r_[0, np.arange(399, 0, -1)]
+    chain = np.full((400, 2), -1, np.int32)
+    chain[perm[1:], 0], chain[perm[:-1], 1] = perm[:-1], perm[1:]
+    chain = torch.from_numpy(chain)
+    v = torch.ones(400, dtype=torch.int32)
+    got = pc.connected_components(chain.to(dev), v.to(dev)).cpu()
+    assert torch.equal(got, pc.connected_components(chain, v))
+    assert len(torch.unique(got)) > 1
+    comp = pc.connected_components(table, valid.to(dev))
+    assert torch.equal(pc.component_sizes(comp, valid.to(dev), 2000).cpu(),
+                       pc.component_sizes(comp.cpu(), valid, 2000))

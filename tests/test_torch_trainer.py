@@ -34,6 +34,8 @@ from languagegroundedsemseg_torch.convert import state_dict_from_jax
 from languagegroundedsemseg_torch.data import loader as port_loader
 from languagegroundedsemseg_torch.data.loader import load_dataset, register_dataset
 from languagegroundedsemseg_torch.data.synthetic_dataset import SyntheticTiny20Dataset
+from languagegroundedsemseg_torch.insseg.dataset import load_instance_dataset
+from languagegroundedsemseg_torch.insseg.trainer import InssegTrainer
 from languagegroundedsemseg_torch.models import layers
 from languagegroundedsemseg_torch.ops import onehot_conv
 from languagegroundedsemseg_torch.train.trainer import Trainer, select_mode
@@ -112,15 +114,21 @@ def test_select_mode_equals_jax(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(dataset="Scannet200Instance2cmDataset"), "item 8"),
+    (dict(dataset="SyntheticInstanceDataset", num_devices=2), "item 5"),
     (dict(model="ClassifierNet"), "item 7"),
     (dict(classifier_resample_features=True), "item 7"),
     (dict(wrapper_type="BilateralCRF"), "item 6"),
     (dict(num_devices=2), "item 5"),
 ])
 def test_unported_modes_raise(tmp_path, kw, item):
+    """Each mode's trainer as cli.main picks it: instance datasets go to
+    InssegTrainer, the rest to Trainer."""
+    cfg = Config(**_kw(log_dir=str(tmp_path / "run"), **kw))
     with pytest.raises(NotImplementedError, match=item):
-        _port(tmp_path, **kw)
+        if select_mode(cfg) == "insseg":
+            InssegTrainer(cfg, dataset_cls=load_instance_dataset(cfg.dataset), device="cpu")
+        else:
+            Trainer(cfg, device="cpu")
 
 
 def test_cuda_without_card_raises(tmp_path):
