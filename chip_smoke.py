@@ -25,8 +25,13 @@ segmentation as a user runs it: ``cli.main.main`` with the flags of
 scripts/train_insseg.sh (InstanceRes16UNet, a 200-class synthetic
 stand-in for the Scannet200 instance scenes), 12 steps and the
 validation of every val scene, launches checked the same way, one insseg
-train step card vs CPU and the device cluster ops against the host. Each phase
-prints one JSON line; the last line is
+train step card vs CPU and the device cluster ops against the host. Then
+data parallelism: the CLI as rank 0 of a world of one over NCCL against
+the baseline run, then two spawned ranks sharing the card over gloo (the
+baseline's flags and the insseg flags with ``--num_devices 2``; parameters
+bit-equal across ranks, launches checked per rank, the all-reduced
+validation against one process's) and one two-rank train step card vs
+CPU. Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. It needs a CUDA device and imports
 nothing of JAX.
@@ -129,6 +134,14 @@ def cuda_ms(fn, runs: int, warmup: int = 3) -> float:
 # ---- phases -------------------------------------------------------------
 
 
+def set_numerics() -> None:
+    """f32 GEMMs in f32 (no TF32, no reduced-precision bf16 sums), in this
+    process and in every rank it spawns."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def phase_device() -> dict:
     import scipy  # the data layer's transforms, voxelizer and datasets
 
@@ -137,9 +150,7 @@ def phase_device() -> dict:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    set_numerics()
     info = {
         "phase": "device", "nvidia_smi": smi,
         "kind": torch.cuda.get_device_name(0),
@@ -1627,12 +1638,13 @@ def _checked_restore(restore, log):
 
 
 def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
-                 resumed: dict = None) -> dict:
+                 resumed: dict = None, keep_state: bool = False) -> dict:
     """One ``cli.main.main(argv)`` on the card with every launch count set
     to 0 just before it, checked just after against the launches of every
     train step and eval forward it ran. ``argv`` trains to epoch
     ``epochs``: the state must end at ``epochs`` x len(train_loader)
-    steps, with a record for each epoch this run trained."""
+    steps, with a record for each epoch this run trained. ``keep_state``
+    adds the final state dict (on the CPU) under ``"state"``."""
     from languagegroundedsemseg_torch.cli.main import main as cli_main
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
@@ -1712,7 +1724,10 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
             "checkpoints": [f for f in files if f.endswith(".ckpt")],
             "launches": launches, "expected_launches": tr.want,
             "ablation_launches": ablation,
-            **({"resumed": resumed} if resumed is not None else {})}
+            **({"resumed": resumed} if resumed is not None else {}),
+            **({"state": {k: v.detach().cpu().clone()
+                          for k, v in tr.model.state_dict().items()}}
+               if keep_state else {})}
 
 
 def phase_trainer_path() -> dict:
@@ -1734,7 +1749,8 @@ def phase_trainer_path() -> dict:
         n = TRAINER_EPOCHS
         runs = [
             _trainer_run("baseline", LEARNING_CURVE_ARGV + [
-                "--max_epoch", str(n), "--log_dir", a_dir], n, ("val_miou",)),
+                "--max_epoch", str(n), "--log_dir", a_dir], n, ("val_miou",),
+                keep_state=True),
             _trainer_run("language_grounded", LEARNING_CURVE_ARGV + [
                 "--max_epoch", str(n), "--model", "Res16UNet34D",
                 "--use_embedding_loss", "contrastive", "--log_dir", b_dir],
@@ -1745,12 +1761,14 @@ def phase_trainer_path() -> dict:
         ]
     if runs[1]["mode"] != "representation" or runs[0]["mode"] != "baseline":
         raise AssertionError(f"modes {[r['mode'] for r in runs]}")
+    baseline_state = runs[0].pop("state")
     totals = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     rec = {"phase": "trainer_path", "argv": LEARNING_CURVE_ARGV, "runs": runs,
            "launches": totals,
            "ablation_launches": {k: sum(r["ablation_launches"][k] for r in runs)
                                  for k in runs[0]["ablation_launches"]}}
     emit(rec)
+    rec["baseline_state"] = baseline_state  # for phase ddp_path; not printed
     return rec
 
 
@@ -1873,7 +1891,8 @@ def _recording_insseg_trainer():
                 "load_build_backproject_s": host - sp["cluster_s"] - sp["evaluate_s"],
                 "scenes": len(sp["voxels"]), "voxels": sp["voxels"],
                 "proposals": sp["proposals"],
-                "proposals_per_scene": float(np.mean(sp["proposals"]))})
+                "proposals_per_scene": (float(np.mean(sp["proposals"]))
+                                        if sp["proposals"] else 0.0)})
             self._mark = time.perf_counter()
             return out
 
@@ -2139,6 +2158,292 @@ def phase_insseg_path() -> dict:
     return rec
 
 
+# ---- phase ddp_path: data parallelism ------------------------------------
+# One H100: NCCL refuses two ranks on one device, so (a) runs the CLI as
+# rank 0 of a world of 1 over NCCL, and (b)-(d) run two ranks on cuda:0
+# over gloo. They check correctness and measure the overhead of the ranks'
+# traffic; two ranks sharing one card say nothing of scaling across cards.
+DDP_WORLD = 2
+DDP_INSSEG_STEPS = 4
+# the ranks' gloo group gives up on a collective after this long
+DDP_TIMEOUT_S = 600
+# the all-reduced validation against one process's (argmax ties can flip
+# where the two runs' capacities route a conv through another path)
+DDP_MIOU_ATOL = 1e-3
+# threads a rank's CPU half of (c) takes: two ranks share the cores
+DDP_CPU_THREADS = 4
+
+
+def _state_gap(a: dict, b: dict) -> dict:
+    """Bit-equality and the largest |a - b| over two state dicts."""
+    diff = max(float((a[k].double() - b[k].double()).abs().max()) for k in b)
+    return {"bit_equal": all(torch.equal(a[k], b[k]) for k in b),
+            "max_abs_diff": diff, "tensors": len(b)}
+
+
+def _ddp_world_one(trainer_rec: dict) -> dict:
+    """(a) ``cli.main`` as rank 0 of a world of one over NCCL, with
+    torchrun's environment, the group on a ``file://`` store: trainer_path
+    run (a)'s flags. Held against that run: launches (as every run), the
+    first step's loss; the later losses, val_miou and final parameters are
+    reported with their gaps. (The port's scatter sums run through
+    ``index_add_``, whose float atomics add in another order on each run,
+    so two runs of the same program need not agree bit for bit; 16 SGD
+    steps at lr 0.05 can grow such a difference.)"""
+    import torch.distributed as dist
+
+    base = trainer_rec["runs"][0]
+    with tempfile.TemporaryDirectory(prefix="lgs_ddp_a_") as tmp, \
+            mock.patch.dict(os.environ, {"RANK": "0", "WORLD_SIZE": "1",
+                                         "LOCAL_RANK": "0"}):
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            probe = torch.ones(4, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            run = _trainer_run("world1_nccl", LEARNING_CURVE_ARGV + [
+                "--max_epoch", str(TRAINER_EPOCHS), "--log_dir", f"{tmp}/log"],
+                TRAINER_EPOCHS, ("val_miou",), keep_state=True)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    state = run.pop("state")
+    gap = _state_gap(state, trainer_rec["baseline_state"])
+    loss_gaps = [abs(a - b) / abs(b) for a, b in zip(run["losses"], base["losses"])]
+    rec = {"backend": backend, "nccl_all_reduce": probe.tolist(),
+           "steps": run["steps"], "scenes_per_s": run["scenes_per_s"],
+           "trainer_path_scenes_per_s": base["scenes_per_s"], "fit_s": run["fit_s"],
+           "max_memory_allocated": run["max_memory_allocated"],
+           "losses": run["losses"], "loss_rel_gaps": loss_gaps,
+           "val_miou": run["test_metrics"]["val_miou"],
+           "trainer_path_val_miou": base["test_metrics"]["val_miou"],
+           "params_vs_trainer_path": gap,
+           "bit_equal": gap["bit_equal"] and run["losses"] == base["losses"],
+           "launches": run["launches"]}
+    if probe.tolist() != [1.0] * 4 or backend != "nccl":
+        raise AssertionError(f"ddp (a): NCCL group of one {rec}")
+    if run["steps"] != base["steps"] or loss_gaps[0] > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"ddp (a): against trainer_path (a) {rec}")
+    return rec
+
+
+def parity_shards():
+    """The parity scene (``parity_batch``'s) split at its median x into
+    two shards, one for each rank."""
+    from languagegroundedsemseg_torch.data.synthetic import voxelize_scene
+
+    coords, feats, labels = voxelize_scene(np.random.default_rng(1), PARITY_POINTS)
+    left = coords[:, 0] < np.median(coords[:, 0])
+    return [(coords[m], feats[m], labels[m]) for m in (left, ~left)]
+
+
+def _ddp_parity_step(rank, group, device, relu) -> tuple:
+    """(loss, grads, state after) of one two-rank SGD step of the
+    conditioned Res16UNet34C on this rank's parity shard, BN synced."""
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.models.layers import convert_sync_batchnorm
+    from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    model = convert_sync_batchnorm(scaled_model(device), group)
+    opt = sgd_torch(model.parameters(), TRAIN_LR)
+    batch = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=PARITY_CAP).build(
+        [parity_shards()[rank]], device=device)
+    with mock.patch.object(torch, "relu", relu):
+        _, m = make_train_step(model, opt, train_objective, device=device,
+                               group=group)(TrainState(model, opt), batch)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    after = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+    return float(m["loss"]), grads, after
+
+
+def _ddp_cli_run(argv, recording, patches=()) -> tuple:
+    """``cli.main.main(argv)`` on cuda:0 in this rank with ``recording``
+    patched in (launch counts set to 0 just before, read just after):
+    (the trainer, its metrics, launches, seconds, peak memory)."""
+    from languagegroundedsemseg_torch.cli.main import main as cli_main
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oc.reset_launch_counts()
+    oa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        metrics = cli_main(argv, device="cuda:0")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    (tr,) = recording.instances
+    launches = dict(oc.launch_counts)
+    if any(oa.launch_counts.values()):
+        raise AssertionError(f"ablation kernels in a DDP run: {dict(oa.launch_counts)}")
+    return tr, metrics, launches, seconds, torch.cuda.max_memory_allocated()
+
+
+def _ddp_rank(rank: int, tmp: str) -> None:
+    """One of the DDP_WORLD ranks of (b)-(d), on cuda:0 over gloo; writes
+    its records to ``tmp``/rank<k>.pt (states as CPU tensors)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from languagegroundedsemseg_torch.insseg import dataset as insseg_dataset_mod
+    from languagegroundedsemseg_torch.insseg import trainer as insseg_trainer
+    from languagegroundedsemseg_torch.train import trainer as trainer_mod
+
+    set_numerics()
+    torch.set_num_threads(DDP_CPU_THREADS)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DDP_WORLD), LOCAL_RANK=str(rank))
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=DDP_WORLD,
+                            timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    out = {}
+    try:
+        group = dist.group.WORLD
+        # (b) the learning-curve flags across two ranks
+        recording = _recording_trainer()
+        tr, metrics, launches, seconds, peak = _ddp_cli_run(
+            LEARNING_CURVE_ARGV + ["--max_epoch", str(TRAINER_EPOCHS),
+                                   "--num_devices", str(DDP_WORLD),
+                                   "--log_dir", f"{tmp}/b"],
+            recording, [mock.patch.object(trainer_mod, "Trainer", recording)])
+        after_first = tr.step_s[1:]
+        out["b"] = {
+            "rank": tr.rank, "world": tr.world, "steps": tr.n_train,
+            "eval_forwards": tr.n_eval, "main_s": seconds, "fit_s": tr.fit_s,
+            "val_s": tr.val_s, "step_s": tr.step_s,
+            "scenes_per_s": tr.config.batch_size * len(after_first) / sum(after_first),
+            "max_memory_allocated": peak, "losses": tr.losses,
+            "first_loss": tr.losses[0], "last_loss": tr.losses[-1],
+            "val_miou": metrics["val_miou"], "val_loss": metrics["val_loss"],
+            "steps_per_epoch": len(tr.train_loader),
+            "launches": launches, "expected_launches": tr.want,
+            "state": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}}
+        del tr
+        # (c) one two-rank step on the card and on the CPU, same group
+        for tag, relu in (("model", torch.relu), ("relu_free", lambda x: x)):
+            out.setdefault("c", {})[tag] = {
+                dev: _ddp_parity_step(rank, group, dev, relu) for dev in ("cuda", "cpu")}
+        # (d) instance segmentation: train_insseg.sh's flags, DDP_INSSEG_STEPS
+        # steps across the ranks, then rank 0 validates
+        recording = _recording_insseg_trainer()
+        tr, metrics, launches, seconds, peak = _ddp_cli_run(
+            INSSEG_ARGV + ["--max_iter", str(DDP_INSSEG_STEPS),
+                           "--num_devices", str(DDP_WORLD), "--log_dir", f"{tmp}/d"],
+            recording,
+            [mock.patch.object(insseg_trainer, "InssegTrainer", recording),
+             mock.patch.dict(insseg_dataset_mod._INSTANCE_DATASETS,
+                             {"Scannet200Instance2cmDataset": insseg_dataset()})])
+        after_first = tr.step_s[1:]
+        out["d"] = {
+            "rank": tr.rank, "steps": tr.n_train, "eval_forwards": tr.n_eval,
+            "main_s": seconds, "fit_s": tr.fit_s,
+            "scenes_per_s": tr.config.batch_size * len(after_first) / sum(after_first),
+            "max_memory_allocated": peak,
+            "first_losses": {k: v[0] for k, v in tr.losses.items()},
+            "last_losses": {k: v[-1] for k, v in tr.losses.items()},
+            "validated_scenes": [r["scenes"] for r in tr.val_records],
+            "validate_s": [r["s"] for r in tr.val_records],
+            "metrics": metrics, "launches": launches, "expected_launches": tr.want,
+            "state": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _one_process_validation(argv: list, state: dict) -> dict:
+    """``Trainer.validate`` of ``state`` in this process (one rank) over
+    the val scenes of ``argv``."""
+    from languagegroundedsemseg_torch.config import get_config
+    from languagegroundedsemseg_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="lgs_ddp_val_") as tmp:
+        tr = Trainer(get_config(argv + ["--log_dir", tmp]), device="cuda")
+        try:
+            tr.model.load_state_dict(state)
+            return tr.validate()
+        finally:
+            tr.close()
+
+
+def phase_ddp_path(trainer_rec: dict) -> dict:
+    """Data parallelism through the entry points a user calls. (a) the
+    CLI as a world of one over NCCL, against trainer_path run (a). (b) the
+    same flags on two ranks sharing cuda:0 over gloo (spawned processes,
+    each entering ``cli.main.main`` with ``--num_devices 2``): parameters
+    and BN buffers bit-equal across the ranks, each rank's launches equal
+    to ``expected_launches`` over its train steps and eval forwards, and
+    the all-reduced val_miou equal to one process's validation of rank
+    0's weights. (c) one two-rank step on the card against the same two
+    ranks on the CPU, on the parity scene split in two, within
+    train_parity's tolerances. (d) instance segmentation on two ranks:
+    DDP_INSSEG_STEPS steps, then rank 0 validates; parameters bit-equal,
+    launches equal ``expected_launches``."""
+    t0 = time.perf_counter()
+    a = _ddp_world_one(trainer_rec)
+    with tempfile.TemporaryDirectory(prefix="lgs_ddp_") as tmp:
+        t1 = time.perf_counter()
+        torch.multiprocessing.spawn(_ddp_rank, args=(tmp,), nprocs=DDP_WORLD, join=True)
+        spawn_s = time.perf_counter() - t1
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                 for r in range(DDP_WORLD)]
+    b = [r["b"] for r in ranks]
+    d = [r["d"] for r in ranks]
+    checks = {}
+    for tag, runs in (("b", b), ("d", d)):
+        gaps = [_state_gap(r["state"], runs[0]["state"]) for r in runs[1:]]
+        checks[f"{tag}_ranks_bit_equal"] = all(g["bit_equal"] for g in gaps)
+        checks[f"{tag}_launches_equal_expected"] = all(
+            r["launches"] == r["expected_launches"] and min(r["launches"].values()) > 0
+            for r in runs)
+    one = _one_process_validation(LEARNING_CURVE_ARGV, b[0]["state"])
+    checks["b_val_miou_all_ranks_equal"] = len({r["val_miou"] for r in b}) == 1
+    checks["b_val_miou_vs_one_process"] = abs(b[0]["val_miou"] - one["val_miou"])
+    n_val = d[0]["validated_scenes"][0] if d[0]["validated_scenes"] else 0
+    checks["d_rank0_validated"] = n_val > 0 and all(
+        r["validated_scenes"] == ([n_val] * 2 if r["rank"] == 0 else [0, 0]) for r in d)
+    c = ranks[0]["c"]
+    parity = {tag: _step_gap(c[tag]["cuda"], c[tag]["cpu"]) for tag in c}
+    m, f = parity["model"], parity["relu_free"]
+    held_c = [m["loss"] <= TRAIN_LOSS_RTOL, m["stats"] <= TRAIN_STATE_RTOL,
+              f["loss"] <= TRAIN_LOSS_RTOL, f["grads"] <= TRAIN_GRAD_RTOL,
+              f["params"] <= TRAIN_STATE_RTOL, f["stats"] <= TRAIN_STATE_RTOL]
+    c_ranks_equal = _state_gap(ranks[1]["c"]["relu_free"]["cuda"][2],
+                               c["relu_free"]["cuda"][2])["bit_equal"]
+    for r in b + d:
+        r.pop("state")
+    launches = {k: a["launches"][k] + sum(r["launches"][k] for r in b + d)
+                for k in a["launches"]}
+    rec = {"phase": "ddp_path", "world_one_nccl": a, "world": DDP_WORLD,
+           "two_ranks_one_card": {"backend": "gloo", "device": "cuda:0",
+                                  "trainer": b, "insseg": d},
+           "one_process_validation": one,
+           "parity": {"shards_voxels": [len(s[0]) for s in parity_shards()],
+                      "card_vs_cpu": parity, "loss": c["model"]["cuda"][0],
+                      "ranks_equal_after_step": c_ranks_equal,
+                      "tolerances": {"loss": TRAIN_LOSS_RTOL, "grads": TRAIN_GRAD_RTOL,
+                                     "params_and_stats": TRAIN_STATE_RTOL}},
+           "checks": checks, "launches": launches, "spawn_s": spawn_s,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    failed = [k for k, v in checks.items()
+              if v is False or (k == "b_val_miou_vs_one_process" and v > DDP_MIOU_ATOL)]
+    if not all(held_c):
+        failed.append("c_card_vs_cpu")
+    if not c_ranks_equal:
+        failed.append("c_ranks_equal_after_step")
+    if failed:
+        raise AssertionError(f"ddp_path: {failed}")
+    return rec
+
+
 _REPLACES = {
     "sel_fwd": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:77", 96),
     "csum": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:618", 32),
@@ -2187,6 +2492,7 @@ def main() -> int:
     e2e = phase_e2e_path()
     trainer = phase_trainer_path()
     insseg = phase_insseg_path()
+    ddp = phase_ddp_path(trainer)
 
     # one row per kernel, at its main forward width (dw: block8's convs);
     # launches per train step, beside the forward's
@@ -2201,6 +2507,7 @@ def main() -> int:
             "launches_e2e": e2e["launches"][name],
             "launches_trainer": trainer["launches"][name],
             "launches_insseg": insseg["launches"][name],
+            "launches_ddp": ddp["launches"][name],
             "width": width, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -2219,6 +2526,7 @@ def main() -> int:
             "launches_e2e": e2e["ablation_launches"][name],
             "launches_trainer": trainer["ablation_launches"][name],
             "launches_insseg": insseg["ablation_launches"][name],
+            "launches_ddp": 0,
             "launches_per_ablation": ablation["launches"][name],
             "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -8,6 +8,16 @@ train/test dispatch match its behavior: instance datasets go to
 ``insseg.trainer.InssegTrainer`` (fit to ``max_iter`` steps, then
 validate), every other mode to ``train.trainer.Trainer``. Runs on the
 card unless the caller passes ``device="cpu"``.
+
+Across N cards, one process per card:
+
+    torchrun --nproc_per_node N -m languagegroundedsemseg_torch.cli.main \
+        --model Res16UNet34C --dataset ... --num_devices N
+
+``--num_devices 0`` (the default) means torchrun's world, or one rank
+without torchrun; a value above 1 without torchrun's environment (or a
+process group the caller made), or one that differs from ``WORLD_SIZE``,
+raises. The process group this entry point makes is destroyed at exit.
 """
 
 from __future__ import annotations
@@ -28,10 +38,21 @@ def main(argv=None, device="cuda"):
         format=f"%(asctime)s [{os.uname().nodename}] %(message)s",
     )
 
-    from languagegroundedsemseg_torch.train.trainer import Trainer, select_mode
+    from languagegroundedsemseg_torch.parallel.mesh import make_mesh
+    from languagegroundedsemseg_torch.train.trainer import select_mode
 
     mode = select_mode(config)
-    logging.info("mode=%s model=%s dataset=%s", mode, config.model, config.dataset)
+    mesh = make_mesh(config.num_devices, device)
+    logging.info("mode=%s model=%s dataset=%s rank=%d/%d device=%s", mode, config.model,
+                 config.dataset, mesh.rank, mesh.world, mesh.device)
+    try:
+        return _run(config, mode, mesh)
+    finally:
+        mesh.close()
+
+
+def _run(config, mode, mesh):
+    from languagegroundedsemseg_torch.train.trainer import Trainer
 
     if mode == "insseg":
         # Downstream instance segmentation (reference ddp_main.py entry):
@@ -40,7 +61,7 @@ def main(argv=None, device="cuda"):
         from languagegroundedsemseg_torch.insseg.trainer import InssegTrainer
 
         trainer = InssegTrainer(config, dataset_cls=load_instance_dataset(config.dataset),
-                                device=device)
+                                mesh=mesh)
         try:
             if config.is_train:
                 trainer.fit(max_steps=int(config.max_iter))
@@ -50,7 +71,7 @@ def main(argv=None, device="cuda"):
         logging.info("final metrics: %s", metrics)
         return metrics
 
-    trainer = Trainer(config, device=device)
+    trainer = Trainer(config, mesh=mesh)
     try:
         if config.is_train:
             trainer.fit()

@@ -20,9 +20,14 @@ on that event and marks every device tensor as used by that stream
 (``record_stream``), so the caching allocator cannot hand a batch's memory
 to a later copy while the step still reads it. The copy of batch k+1 thus
 overlaps the step on batch k. On the CPU (``device="cpu"``) batches are
-torch tensors sharing the builder's numpy memory. Multi-device stacking
-(the JAX loader's ``stack_batches``) is not ported: ``num_devices > 1``
-raises ``NotImplementedError``.
+torch tensors sharing the builder's numpy memory.
+
+Data parallelism (JAX :141-146, :218-276): with ``num_devices`` ranks,
+every rank walks the same epoch order, padded by wrap-around to whole
+``(num_devices, batch_size)`` groups, and rank k builds row k of each group
+with the scene counter ``base + k``: the batch the JAX loader stacks at
+index k. The shards' graphs are not harmonized (``parallel/dp.py`` says why
+``stack_batches`` has no counterpart).
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import dataclasses
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -141,11 +146,16 @@ class DataLoader:
         ignore_index: int = 255,
         extras_fn=None,
         device="cuda",
+        rank: Optional[int] = None,
     ):
-        if num_devices > 1:
-            raise NotImplementedError(
-                "multi-device batches (stack_batches) are not ported; "
-                "use num_devices=1")
+        if rank is None and num_devices > 1:
+            raise ValueError(
+                f"num_devices={num_devices}: pass this process's rank (one "
+                "process per rank, as torchrun starts them)")
+        rank = rank or 0
+        if not 0 <= rank < num_devices:
+            raise ValueError(
+                f"rank {rank} is not one of num_devices={num_devices} ranks")
         # Graph builds churn large numpy scratch every batch; tune the host
         # allocator once per process (utils/host_alloc.py — big, measured
         # win on lazily-backed VM memory; no-op where unsupported).
@@ -160,6 +170,7 @@ class DataLoader:
         self.seed = seed
         self.num_workers = max(num_workers, 1)
         self.num_devices = num_devices
+        self.rank = rank
         # Optional per-item extras: extras_fn(item) -> dict of (N, ...)
         # arrays carried through dedup/sort/padding (instance targets for
         # the insseg trainer).
@@ -256,11 +267,11 @@ class DataLoader:
         return batch
 
     def _build_group(self, index_groups: List[List[int]], base_counter: int):
-        (indices,) = index_groups  # one device (checked in __init__)
-        b = self._build_one(indices, base_counter)
+        # this rank's row of the (num_devices, batch_size) group
+        b = self._build_one(index_groups[self.rank], base_counter + self.rank)
         if getattr(b, "graph", None) is not None:
-            # pinned single-device builds keep flats (see batching.py);
-            # no cross-shard decision here, so drop covered ones now
+            # pinned builds keep flats (see batching.py); no cross-shard
+            # decision here, so drop covered ones now
             from languagegroundedsemseg_torch.sparse.graph_host import (
                 drop_covered_flat_maps,
             )
@@ -360,12 +371,14 @@ def initialize_data_loader(
     spec=None,
     ship_coords: bool = True,
     device="cuda",
+    rank: Optional[int] = None,
 ):
     """Reference-compatible loader factory (lib/dataset.py:337-416).
 
     ship_coords=False builds compact batches (no device-side spatial
     coords — data/batching.py); callers that visualize, run CRF wrappers,
-    or read coords back keep the default. Batches land on ``device``."""
+    or read coords back keep the default. Batches land on ``device``; with
+    ``num_devices`` ranks, this process is ``rank``."""
     from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
 
     prevoxel, input_t = build_input_transforms(config, DatasetClass, augment_data)
@@ -402,4 +415,5 @@ def initialize_data_loader(
         num_devices=num_devices,
         ignore_index=config.ignore_label,
         device=device,
+        rank=rank,
     )

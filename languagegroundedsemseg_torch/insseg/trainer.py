@@ -1,4 +1,4 @@
-"""Instance-segmentation trainer on one device.
+"""Instance-segmentation trainer, on one device or across ranks.
 
 Counterpart of ``languagegroundedsemseg_tpu/insseg/trainer.py`` (:37-367),
 the mirror of reference downstream/insseg/lib/pl_Trainer.py:245-387:
@@ -13,9 +13,15 @@ run on ``device`` (the card unless the caller asks for the CPU), so on the
 card every conv of the backbone runs the port's kernels; the offset head's
 pointwise convs and the losses are plain tensor code. Metrics stay device
 tensors until they are logged; the validation's confusion counts
-accumulate on the device and are read once.
-More than one device (ROADMAP Queue 1, item 5) and bfloat16 compute raise
+accumulate on the device and are read once. bfloat16 compute raises
 ``NotImplementedError``.
+
+Data parallelism (JAX :78-125, :186-195, :256): with ``num_devices`` ranks
+(one process each, ``parallel/mesh.py``) each rank's loader builds its
+shard, the batch norms sync over the group, and the step averages the
+gradients, the loss and the parts. JAX validates on one device, unsharded:
+here rank 0 validates every scene while the other ranks wait, then
+broadcasts the metrics. Rank 0 alone writes the log and the checkpoints.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy import spatial
 
 from languagegroundedsemseg_torch.config import Config
@@ -45,7 +52,11 @@ from languagegroundedsemseg_torch.losses.classification import (
     cross_entropy_loss,
     focal_loss,
 )
+from languagegroundedsemseg_torch.models.layers import convert_sync_batchnorm
 from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+from languagegroundedsemseg_torch.parallel.collectives import barrier
+from languagegroundedsemseg_torch.parallel.dp import broadcast_module
+from languagegroundedsemseg_torch.parallel.mesh import Mesh, make_mesh
 from languagegroundedsemseg_torch.train.checkpoints import (
     CheckpointManager,
     find_resume_checkpoint,
@@ -124,15 +135,15 @@ def make_insseg_eval_step(model, num_labels: int, device="cuda") -> Callable:
 
 class InssegTrainer:
     def __init__(self, config: Config, dataset_cls=None, model_cls=None,
-                 device="cuda"):
-        if (config.num_devices or 1) > 1:
-            raise NotImplementedError(
-                "num_devices > 1: data parallelism is not ported yet "
-                "(ROADMAP Queue 1, item 5)")
+                 device="cuda", mesh: Optional[Mesh] = None):
+        """``mesh``: this process's rank and group (``make_mesh``); None
+        makes it from ``config.num_devices`` and ``device``."""
         if config.compute_dtype != "float32":
             raise NotImplementedError(
                 "the port computes in float32: compute_dtype must be 'float32'")
-        self.device = resolve_device(device)
+        self.mesh = mesh or make_mesh(config.num_devices, device)
+        self.device = self.mesh.device
+        self.group, self.rank, self.world = self.mesh.group, self.mesh.rank, self.mesh.world
         self.config = config
         os.makedirs(config.log_dir, exist_ok=True)
 
@@ -166,6 +177,8 @@ class InssegTrainer:
             device=self.device,
             generator=torch.Generator().manual_seed(config.seed),
         )
+        convert_sync_batchnorm(self.model, self.group)
+        broadcast_module(self.model, self.group)
         # the schedule steps once per update (optax's count), not per epoch
         sched = make_lr_schedule(config.scheduler, config.lr, step_gamma=config.step_gamma,
                                  multi_step_milestones=config.multi_step_milestones,
@@ -180,16 +193,18 @@ class InssegTrainer:
                 self.voxel_size, config.ignore_label,
                 "focal" if config.loss_type == "focal" else "cross_entropy",
                 config.focal_gamma),
-            device=self.device)
+            device=self.device, group=self.group)
         self.p_eval = make_insseg_eval_step(self.model, self.num_labels, device=self.device)
-        self._log_f = open(os.path.join(config.log_dir, "metrics.jsonl"), "a")
+        self._log_f = (open(os.path.join(config.log_dir, "metrics.jsonl"), "a")
+                       if self.mesh.is_writer else None)
 
         self.clusterer = Clustering(
             ignored_labels=[],  # train-id space; benchmark mapping applied after
             class_mapping=np.asarray(self.dataset.VALID_CLASS_IDS),
             thresh=0.03, min_points=50, propose_points=100,
         )
-        self.ckpt = CheckpointManager(config.log_dir, {"val_miou": "max", "val_map05": "max"})
+        self.ckpt = CheckpointManager(config.log_dir, {"val_miou": "max", "val_map05": "max"},
+                                      rank=self.rank)
         self.train_loader = None
 
     # ------------------------------------------------------------------
@@ -208,13 +223,16 @@ class InssegTrainer:
     # ------------------------------------------------------------------
 
     def _log(self, rec: Dict):
+        if self._log_f is None:
+            return
         self._log_f.write(json.dumps({k: (float(v) if hasattr(v, "item") else v)
                                       for k, v in rec.items()}) + "\n")
         self._log_f.flush()
 
     def close(self):
         """Close the metrics file."""
-        self._log_f.close()
+        if self._log_f is not None:
+            self._log_f.close()
 
     def fit(
         self,
@@ -243,8 +261,8 @@ class InssegTrainer:
             self.dataset, self.builder,
             batch_size=min(cfg.batch_size, len(self.dataset)),
             shuffle=True, repeat=True, seed=cfg.seed,
-            num_workers=cfg.num_workers, ignore_index=cfg.ignore_label,
-            extras_fn=insseg_extras, device=self.device,
+            num_workers=cfg.num_workers, num_devices=self.world, rank=self.rank,
+            ignore_index=cfg.ignore_label, extras_fn=insseg_extras, device=self.device,
         )
         batch_iter = iter(self.train_loader)
         try:
@@ -253,23 +271,35 @@ class InssegTrainer:
                 self.state, parts = self.p_train_step(self.state, batch)
                 if (step + 1) % log_every == 0:
                     rec = {k: float(v) for k, v in parts.items()} | {"step": step + 1}
-                    print(json.dumps(rec))
+                    if self.mesh.is_writer:
+                        print(json.dumps(rec))
                     self._log(rec | {"phase": "train"})
                 if val_every and (step + 1) % val_every == 0:
                     metrics = self.validate(max_scenes=max_val_scenes)
                     self._log(metrics | {"phase": "val", "step": step + 1})
                     self.ckpt.save(self.state, metrics, step + 1)
+                    barrier(self.group)
         finally:
             batch_iter.close()  # stops the loader's feeder and workers
         if not val_every:
             self.ckpt.save(self.state, {}, int(self.state.step))
+            barrier(self.group)
         return self.state
 
     def validate(self, max_scenes: Optional[int] = None) -> Dict[str, float]:
         """One scene at a time (rng ``(999, i)``): the eval forward on the
         device, then on the host the vote shift, the clustering and the
         instance evaluation at full resolution (voxel masks back-projected
-        to the original cloud), or in voxel space without one."""
+        to the original cloud), or in voxel space without one. With
+        several ranks, rank 0 validates every scene (the eval forward
+        never syncs) while the others wait; every rank returns rank 0's
+        metrics."""
+        metrics = [self._validate(max_scenes) if self.mesh.is_writer else None]
+        if self.world > 1:
+            dist.broadcast_object_list(metrics, src=0, group=self.group)
+        return metrics[0]
+
+    def _validate(self, max_scenes: Optional[int]) -> Dict[str, float]:
         ev_sem = IoUEvaluator(self.num_labels)
         ev_inst = InstanceEvaluator(
             [int(i) for i in self.dataset.VALID_CLASS_IDS], self.dataset.CLASS_LABELS

@@ -25,6 +25,7 @@ from languagegroundedsemseg_torch.ops.spconv import (
     sparse_conv,
     sparse_conv_parent,
 )
+from languagegroundedsemseg_torch.parallel.collectives import AllReduceSum, group_size
 from languagegroundedsemseg_torch.sparse.types import (
     ChildSumMap,
     ConvGraph,
@@ -106,13 +107,20 @@ class SparseBatchNorm(nn.Module):
     semantics): normalization uses the biased batch variance, the running
     variance the unbiased one, ``running = (1 - momentum) * running +
     momentum * batch``. In eval mode every row — padding included — is
-    normalized with the running statistics, as the reference does."""
+    normalized with the running statistics, as the reference does.
+
+    With a ``process_group`` (``convert_sync_batchnorm``) it is SyncBN: in
+    training, (count, sum, sum of squares) are summed over the ranks before
+    the statistics are formed, and the backward sums their cotangents over
+    the ranks (JAX's psum over ``axis_name``, models/layers.py:161-164).
+    Eval mode never syncs."""
 
     def __init__(self, channels: int, momentum: float = 0.02,
-                 eps: float = 1e-5, device="cuda"):
+                 eps: float = 1e-5, device="cuda", process_group=None):
         super().__init__()
         dev = resolve_device(device)
         self.momentum, self.eps = momentum, eps
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(channels, device=dev))
         self.bias = nn.Parameter(torch.zeros(channels, device=dev))
         self.register_buffer("running_mean", torch.zeros(channels, device=dev))
@@ -122,10 +130,17 @@ class SparseBatchNorm(nn.Module):
         xf = x.to(torch.float32)
         if self.training:
             m = mask.to(torch.float32)[:, None]
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(dim=0) / cnt
-            var = torch.clamp((xf * xf * m).sum(dim=0) / cnt - mean * mean,
-                              min=0.0)
+            cnt = m.sum()
+            sx = (xf * m).sum(dim=0)
+            sxx = (xf * xf * m).sum(dim=0)
+            if group_size(self.process_group) > 1:
+                c = sx.shape[0]
+                packed = AllReduceSum.apply(
+                    torch.cat([cnt[None], sx, sxx]), self.process_group)
+                cnt, sx, sxx = packed[0], packed[1:c + 1], packed[c + 1:]
+            cnt = torch.clamp(cnt, min=1.0)
+            mean = sx / cnt
+            var = torch.clamp(sxx / cnt - mean * mean, min=0.0)
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(
@@ -136,6 +151,17 @@ class SparseBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean) * inv + self.bias
+
+
+def convert_sync_batchnorm(model: nn.Module, process_group) -> nn.Module:
+    """Make every ``SparseBatchNorm`` of ``model`` sync its statistics over
+    ``process_group`` (None: back to per-rank statistics), as
+    ``nn.SyncBatchNorm.convert_sync_batchnorm`` does for torch's batch
+    norm; the modules are changed in place. Returns ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, SparseBatchNorm):
+            mod.process_group = process_group
+    return model
 
 
 class Norm(nn.Module):

@@ -94,16 +94,22 @@ def find_resume_checkpoint(log_dir: str) -> Optional[str]:
 
 
 class CheckpointManager:
-    """Keeps 'last' plus top-1 per monitored metric."""
+    """Keeps 'last' plus top-1 per monitored metric. Under data parallelism
+    every rank holds the same state and only rank 0 writes; the other
+    ranks' ``save`` does nothing."""
 
-    def __init__(self, log_dir: str, monitors: Dict[str, str]):
+    def __init__(self, log_dir: str, monitors: Dict[str, str], rank: int = 0):
         """monitors: name -> 'max' | 'min' (e.g. {'val_miou': 'max'})."""
         self.log_dir = log_dir
         self.monitors = monitors
         self.best: Dict[str, float] = {}
-        os.makedirs(log_dir, exist_ok=True)
+        self.writer = rank == 0
+        if self.writer:
+            os.makedirs(log_dir, exist_ok=True)
 
     def save(self, state: TrainState, metrics: Dict[str, float], step: int, extra_meta=None):
+        if not self.writer:
+            return
         meta = {"step": step, "metrics": metrics}
         if extra_meta:
             meta.update(extra_meta)

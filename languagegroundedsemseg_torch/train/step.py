@@ -2,8 +2,11 @@
 
 Counterpart of ``languagegroundedsemseg_tpu/train/step.py``: ``TrainBatch``
 with its wire decompaction (:38-53), ``make_train_step`` (:56-110) and
-``make_eval_step`` (:113-131). Data parallelism (the reference's
-``axis_name``) is not ported yet.
+``make_eval_step`` (:113-131). With a process ``group`` the train step is
+the data-parallel one (JAX's ``axis_name``, :66-68 and :91-94): its
+generator is folded with the rank, and the gradients, the loss and the
+metrics are averaged over the ranks after the backward (``parallel/dp.py``
+says why this is not ``DistributedDataParallel``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,12 @@ import torch
 
 from languagegroundedsemseg_torch.device import resolve_device
 from languagegroundedsemseg_torch.ops.onehot_conv import with_inverse_anchors
+from languagegroundedsemseg_torch.parallel.collectives import (
+    all_reduce_mean,
+    group_rank,
+    group_size,
+)
+from languagegroundedsemseg_torch.parallel.dp import average_gradients
 from languagegroundedsemseg_torch.sparse.types import ConvGraph, leaf_to
 from languagegroundedsemseg_torch.train.state import TrainState
 
@@ -78,7 +87,7 @@ def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
 
 def make_train_step(model, optimizer, objective: Objective,
                     representation_only: bool = False,
-                    device="cuda") -> Callable:
+                    device="cuda", group=None) -> Callable:
     """Build ``step(state, batch, generator=None) -> (state, metrics)``.
 
     Moves ``model`` to ``device``. Each call runs the train-mode forward
@@ -88,9 +97,19 @@ def make_train_step(model, optimizer, objective: Objective,
     ``TrainState`` of this model and optimizer. The objective's generator is
     ``generator`` folded with the step. Metrics (0-d tensors on the device):
     the objective's, ``loss``, and ``grad_norm``, the global L2 norm of the
-    gradients before the update."""
+    gradients before the update.
+
+    With a process ``group`` of more than one rank (each rank calls the
+    step on its own batch shard, the model's batch norms synced by
+    ``convert_sync_batchnorm``): the generator is folded with the rank
+    first, then with the step, and after the backward the gradients, the
+    loss and the metrics are averaged over the ranks; ``grad_norm`` reads
+    the averaged gradients, as ``optax.global_norm`` reads JAX's after its
+    pmean. Every rank then makes the same update."""
     dev = resolve_device(device)
     model = model.to(dev)
+    data_parallel = group_size(group) > 1
+    rank = group_rank(group)
 
     def step(state: TrainState, batch: "TrainBatch",
              generator: Optional[torch.Generator] = None):
@@ -98,7 +117,10 @@ def make_train_step(model, optimizer, objective: Objective,
         # the selector convs' dW reads the inverse tiling: rebuild it once
         # per map for this batch where the wire format left it out
         batch = batch.replace(graph=with_inverse_anchors(batch.graph))
-        gen = None if generator is None else fold_in(generator, state.step)
+        gen = generator
+        if gen is not None and data_parallel:
+            gen = fold_in(gen, rank)
+        gen = None if gen is None else fold_in(gen, state.step)
         model.train()
         # every parameter's gradient, also those the optimizer does not
         # update (classifier_only), so grad_norm reads this step's only
@@ -109,6 +131,12 @@ def make_train_step(model, optimizer, objective: Objective,
         loss, metrics = objective(*outputs, batch, gen, row_mask)
         loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
+        if data_parallel:
+            average_gradients(grads, group)
+            reduced = all_reduce_mean(
+                {**{k: v.detach() for k, v in metrics.items()},
+                 "loss": loss.detach()}, group)
+            loss, metrics = reduced.pop("loss"), reduced
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         optimizer.step(lr_scale=state.lr_scale)

@@ -14,11 +14,19 @@ metric accumulation on the device, LR scheduling incl ReduceLROnPlateau,
 best-checkpoint tracking, and resume. Every tensor lives on ``device`` (the
 card unless the caller asks for the CPU).
 
+Data parallelism (JAX :85-110, :262-282, :525-570): ``num_devices`` ranks,
+one process each (``torchrun``; ``parallel/mesh.py``). Each rank's loaders
+build its shard, its batch norms sync over the group and its train step
+averages the gradients; the weights are broadcast from rank 0 once. Each
+rank validates its shard and the counts and the loss are all-reduced, so
+every rank reads the same metrics (plateau and best-checkpoint decisions
+agree). Rank 0 alone writes the logs, TensorBoard, the checkpoints and the
+profiler trace; each rank dumps the predictions of its own scenes.
+
 Instance datasets train with ``insseg.trainer.InssegTrainer``; this
 trainer refuses them. Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP Queue 1 item: the CRF wrappers (item 6), the classifier
-mode and its feature-resampling stage (item 7) and more than one device
-(item 5).
+with its ROADMAP Queue 1 item: the CRF wrappers (item 6) and the classifier
+mode and its feature-resampling stage (item 7).
 """
 
 from __future__ import annotations
@@ -33,7 +41,6 @@ import torch
 
 from languagegroundedsemseg_torch.config import Config
 from languagegroundedsemseg_torch.data.loader import initialize_data_loader, load_dataset
-from languagegroundedsemseg_torch.device import resolve_device
 from languagegroundedsemseg_torch.eval.miou import (
     IoUEvaluator,
     ap_from_histograms,
@@ -43,6 +50,10 @@ from languagegroundedsemseg_torch.eval.miou import (
 from languagegroundedsemseg_torch.losses.classification import cross_entropy_loss
 from languagegroundedsemseg_torch.losses.contrastive import feature_sim
 from languagegroundedsemseg_torch.models import load_model
+from languagegroundedsemseg_torch.models.layers import convert_sync_batchnorm
+from languagegroundedsemseg_torch.parallel.collectives import all_reduce_sum, barrier
+from languagegroundedsemseg_torch.parallel.dp import broadcast_module
+from languagegroundedsemseg_torch.parallel.mesh import Mesh, make_mesh
 from languagegroundedsemseg_torch.train.checkpoints import (
     CheckpointManager,
     find_resume_checkpoint,
@@ -86,10 +97,6 @@ def _not_ported(config: Config, mode: str) -> None:
         raise NotImplementedError(
             f"wrapper_type={config.wrapper_type!r}: the CRF wrappers are not "
             "ported yet (ROADMAP Queue 1, item 6)")
-    if config.num_devices > 1:
-        raise NotImplementedError(
-            "num_devices > 1: data parallelism is not ported yet "
-            "(ROADMAP Queue 1, item 5)")
     if config.compute_dtype != "float32" or config.remat:
         raise NotImplementedError(
             "the port computes in float32 without recomputation: "
@@ -98,11 +105,15 @@ def _not_ported(config: Config, mode: str) -> None:
 
 class Trainer:
     def __init__(self, config: Config, mode: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
+        """``mesh``: this process's rank and group (``make_mesh``); None
+        makes it from ``config.num_devices`` and ``device``."""
         self.config = config
         self.mode = mode or select_mode(config)
         _not_ported(config, self.mode)
-        self.device = resolve_device(device)
+        self.mesh = mesh or make_mesh(config.num_devices, device)
+        self.device = self.mesh.device
+        self.group, self.rank, self.world = self.mesh.group, self.mesh.rank, self.mesh.world
         self.log_dir = config.log_dir
         os.makedirs(self.log_dir, exist_ok=True)
 
@@ -116,7 +127,7 @@ class Trainer:
             num_workers=config.num_workers, shuffle=True, repeat=False,
             augment_data=config.train_augmentation, batch_size=config.batch_size,
             limit_numpoints=config.train_limit_numpoints, ship_coords=False,
-            device=self.device,
+            num_devices=self.world, rank=self.rank, device=self.device,
         )
         self.val_loader = initialize_data_loader(
             self.DatasetClass, config, config.val_phase,
@@ -125,14 +136,16 @@ class Trainer:
             limit_numpoints=config.train_limit_numpoints,
             ship_coords=bool(config.visualize) or bool(config.save_prediction)
             or bool(config.test_original_pointcloud),
-            device=self.device,
+            num_devices=self.world, rank=self.rank, device=self.device,
         )
         self.dataset = self.train_loader.dataset
         self.num_labels = self.dataset.num_train_labels
 
         # Model. Parameters are made on the device from a seeded generator;
         # unlike flax, no init batch is needed to infer shapes (the JAX
-        # trainer's _first_batch has no counterpart here).
+        # trainer's _first_batch has no counterpart here). Every rank makes
+        # the same ones; rank 0's (loaded weights included) are broadcast
+        # all the same.
         model_cls = load_model(config.model)
         self.model = model_cls(
             in_channels=getattr(self.dataset, "NUM_IN_CHANNEL", 3),
@@ -143,6 +156,8 @@ class Trainer:
             generator=torch.Generator().manual_seed(config.seed),
         )
         self._maybe_load_weights()
+        convert_sync_batchnorm(self.model, self.group)
+        broadcast_module(self.model, self.group)
         self.representation_only = self.mode == "representation"
 
         # Objective
@@ -202,6 +217,7 @@ class Trainer:
         self.p_train_step = make_train_step(
             self.model, optimizer, objective,
             representation_only=self.representation_only, device=self.device,
+            group=self.group,
         )
         self.p_eval_step = make_eval_step(
             self.model, representation_only=self.representation_only,
@@ -212,20 +228,23 @@ class Trainer:
         monitors = {"val_miou": "max"}
         if self.mode == "representation":
             monitors["val_loss"] = "min"
-        self.ckpt = CheckpointManager(self.log_dir, monitors)
+        self.ckpt = CheckpointManager(self.log_dir, monitors, rank=self.rank)
         self.plateau_best = None
         self.plateau_wait = 0
-        self._log_f = open(os.path.join(self.log_dir, "metrics.jsonl"), "a")
-        with open(os.path.join(self.log_dir, "config.json"), "w") as f:
-            f.write(config.to_json())
+        self._log_f = None
+        if self.mesh.is_writer:
+            self._log_f = open(os.path.join(self.log_dir, "metrics.jsonl"), "a")
+            with open(os.path.join(self.log_dir, "config.json"), "w") as f:
+                f.write(config.to_json())
 
         # Observability: TensorBoard scalars (reference main.py:178) and
         # torch.profiler trace capture behind config.profile
-        self.tb = TensorBoardLogger(self.log_dir, enabled=config.tensorboard)
+        self.tb = TensorBoardLogger(self.log_dir, enabled=config.tensorboard,
+                                    rank=self.rank)
         self.profiler = ProfilerHook(
             self.log_dir, enabled=config.profile,
             start_step=config.profile_start_step,
-            num_steps=config.profile_num_steps,
+            num_steps=config.profile_num_steps, rank=self.rank,
         )
 
     # ------------------------------------------------------------------
@@ -316,6 +335,9 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def log(self, record: Dict):
+        """Append ``record`` to metrics.jsonl and TensorBoard (rank 0)."""
+        if self._log_f is None:
+            return
         record = {k: (float(v) if hasattr(v, "item") or isinstance(v, (int, float)) else v)
                   for k, v in record.items()}
         self._log_f.write(json.dumps(record) + "\n")
@@ -412,7 +434,11 @@ class Trainer:
     ) -> Dict[str, float]:
         """One pass over the val loader (or ``batches``). The confusion
         counts, the AP histograms and the loss sum accumulate on the
-        device and are read once, at the end."""
+        device and are read once, at the end. With several ranks each
+        validates its shard; the counts and histograms are summed over the
+        ranks and the mean loss averaged (JAX sums the devices' and
+        averages their losses per batch), so every rank returns the same
+        metrics."""
         split = getattr(self.dataset, "frequency_organized_cats", None)
         ev = IoUEvaluator(self.num_labels, split, getattr(self.dataset, "CLASS_LABELS", None))
         hist_acc = tp_acc = fp_acc = None
@@ -440,11 +466,15 @@ class Trainer:
             ):
                 self._dump_batch_predictions(
                     batch, pred, save_predictions_dir,
-                    scene_base=i * self.val_loader.batch_size,
+                    scene_base=(i * self.world + self.rank) * self.val_loader.batch_size,
                 )
         if hist_acc is not None:
-            ev.update_hist(hist_acc.cpu().numpy())
-            tp_acc, fp_acc = tp_acc.cpu().numpy(), fp_acc.cpu().numpy()
+            with torch.no_grad():
+                summed = all_reduce_sum({"hist": hist_acc, "tp": tp_acc, "fp": fp_acc,
+                                         "loss": loss_sum}, self.group)
+            loss_sum = summed["loss"] / self.world
+            ev.update_hist(summed["hist"].cpu().numpy())
+            tp_acc, fp_acc = summed["tp"].cpu().numpy(), summed["fp"].cpu().numpy()
         m = ev.compute()
         aps = (ap_from_histograms(tp_acc, fp_acc) if tp_acc is not None
                else np.full(self.num_labels, np.nan))
@@ -527,9 +557,11 @@ class Trainer:
                    "train_loss": train_loss, "time_s": time.time() - t0,
                    **self.train_loader.counters.snapshot(), **val_metrics}
             self.log(rec)
-            print(json.dumps(rec))
+            if self.mesh.is_writer:
+                print(json.dumps(rec))
             self.ckpt.save(self.state, val_metrics, int(self.state.step),
                            extra_meta={"epoch": epoch})
+            barrier(self.group)  # rank 0's files are whole before any rank reads them
         self.profiler.close()
         return self.state
 
@@ -553,7 +585,8 @@ class Trainer:
 
     def close(self):
         """Close the metrics file and the TensorBoard writer."""
-        self._log_f.close()
+        if self._log_f is not None:
+            self._log_f.close()
         self.tb.close()
 
     def test(self, save_predictions: bool = False):
@@ -568,6 +601,7 @@ class Trainer:
         )
         pred_dir = cfg.visualize_path or os.path.join(self.log_dir, "visualize")
         metrics = self.validate(save_predictions_dir=pred_dir if dump else None)
+        barrier(self.group)  # every rank's dumps are written
         if cfg.test_original_pointcloud and hasattr(self.val_loader.dataset, "test_pointcloud"):
             miou, _ = self.val_loader.dataset.test_pointcloud(pred_dir, self.num_labels)
             metrics["full_cloud_miou"] = miou

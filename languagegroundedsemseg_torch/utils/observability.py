@@ -7,7 +7,8 @@ steps behind a flag. TensorBoard event writing degrades to a no-op when the
 `tensorboard` package is absent (``TensorBoardLogger.active`` is then
 False, and metrics.jsonl stays the record), and the profiler writes a
 Chrome trace (host ranges and, on the card, the device's kernels) under
-<log_dir>/plugins/profile/<timestamp>/.
+<log_dir>/plugins/profile/<timestamp>/. Under data parallelism only rank 0
+writes either (``rank`` of each constructor); the others are inert.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from typing import Dict
 class TensorBoardLogger:
     """Scalar event writer; silently inert when tensorboard is missing."""
 
-    def __init__(self, log_dir: str, enabled: bool = True):
+    def __init__(self, log_dir: str, enabled: bool = True, rank: int = 0):
         self._writer = None
         self.log_dir = log_dir
-        if not enabled:
+        if not enabled or rank != 0:
             return
         try:
             from torch.utils.tensorboard import SummaryWriter
@@ -68,9 +69,10 @@ class ProfilerHook:
     <log_dir>/plugins/profile/<timestamp>/trace.json.
     """
 
-    def __init__(self, log_dir: str, enabled: bool, start_step: int, num_steps: int):
+    def __init__(self, log_dir: str, enabled: bool, start_step: int, num_steps: int,
+                 rank: int = 0):
         self.log_dir = log_dir
-        self.enabled = enabled and num_steps > 0
+        self.enabled = enabled and num_steps > 0 and rank == 0
         self.start_step = int(start_step)
         self.stop_step = int(start_step) + int(num_steps)
         self._prof = None

@@ -20,6 +20,8 @@ InstanceRes16UNet14A's eval forward and one train step on the card to the
 CPU's, and the point and cluster ops to the CPU's bit for bit.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -742,8 +744,6 @@ def test_insseg_forward_and_train_step_on_card_match_cpu():
     input change (three draws) moves it on the card where that is more:
     batch statistics make the train-mode forward chaotic at random
     weights (PERF.md §6)."""
-    import copy
-
     from languagegroundedsemseg_torch.insseg.model import InstanceRes16UNet14A
 
     dev = _card()
@@ -803,3 +803,111 @@ def test_cluster_ops_on_card_equal_cpu():
     comp = pc.connected_components(table, valid.to(dev))
     assert torch.equal(pc.component_sizes(comp, valid.to(dev), 2000).cpu(),
                        pc.component_sizes(comp.cpu(), valid, 2000))
+
+
+def _conditioned(model, seed: int = 1):
+    """``model`` with well-conditioned random weights (chip_smoke.py's
+    scaled_model): kernels N(0, 0.36 / fan_in), BN scales and running
+    variances in [0.6, 1.4], biases and running means 0.1 * N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith(("running_var", "bn.weight")):
+            v = rng.uniform(0.6, 1.4, size=shape)
+        elif name.endswith(("bias", "running_mean")):
+            v = 0.1 * rng.standard_normal(shape)
+        else:
+            v = rng.standard_normal(shape) * (0.6 / np.sqrt(np.prod(shape[:-1])))
+        sd[name] = torch.tensor(v, dtype=torch.float32)
+    model.load_state_dict(sd)
+    return model
+
+
+def _dp_objective(logits, _features, batch, _generator, row_mask):
+    from languagegroundedsemseg_torch.losses.classification import cross_entropy_loss
+
+    return cross_entropy_loss(logits, batch.labels, 255, row_mask=row_mask), {}
+
+
+def _card_dp_rank(rank, _out, bn_data, shards):
+    """On one gloo group, both ranks on cuda:0: SyncBN's forward and
+    backward, then one two-rank SGD step of a ReLU-free Res16UNet14A with
+    conditioned weights, first on the card and then on the CPU."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.models.layers import convert_sync_batchnorm
+    from languagegroundedsemseg_torch.models.res16unet import (
+        Res16UNet14A,
+        res16unet_graph_spec,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+    from test_torch_parallel import _bn_forward_backward
+
+    group = dist.group.WORLD
+    out = {}
+    x, mask, cot, scale, bias = bn_data
+    base = _conditioned(Res16UNet14A(out_channels=20, device="cpu"))
+    for dev in ("cuda:0", "cpu"):
+        bn = _bn_forward_backward(x[rank], mask[rank], cot[rank], scale, bias, group,
+                                  device=dev)
+        batch = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=2048).build(
+            shards[rank], device=dev)
+        model = copy.deepcopy(base).to(dev)
+        convert_sync_batchnorm(model, group)
+        opt = sgd_torch(model.parameters(), 0.01)
+        launches = sum(oc.launch_counts.values())
+        with mock.patch.object(torch, "relu", lambda v: v):
+            _, metrics = make_train_step(model, opt, _dp_objective, device=dev,
+                                         group=group)(TrainState(model, opt), batch)
+        out[dev] = {"bn": {k: v.cpu() for k, v in bn.items()},
+                    "loss": float(metrics["loss"]),
+                    "launches": sum(oc.launch_counts.values()) - launches,
+                    "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+                    "after": {n: t.cpu() for n, t in model.state_dict().items()}}
+    return out
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_match_the_cpu(tmp_path):
+    """Two gloo ranks, both on cuda:0 (NCCL refuses two ranks on one
+    device): SyncBN within 1e-5 of the same two ranks on the CPU; one
+    two-rank train step of a ReLU-free Res16UNet14A (its convs through the
+    card's kernels) within chip_smoke.py's train-parity tolerances: loss,
+    parameters and BN statistics 1e-4, gradients 1e-2 relative L2. Both
+    ranks end with the same parameters."""
+    from languagegroundedsemseg_torch.data.synthetic import voxelize_scene
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from test_torch_parallel import _bn_data, spawn
+
+    _card()
+    cuda_kernels.build()  # once, before the ranks load the libraries
+    rng = np.random.default_rng(0)
+    shards = [[voxelize_scene(rng, 1500) for _ in range(2)] for _ in range(2)]
+    shards = [[(c, f, np.where(lab == 255, 255, lab % 20).astype(np.int32))
+               for c, f, lab in s] for s in shards]
+    got = spawn(_card_dp_rank, tmp_path, _bn_data(), shards)
+
+    def rel_l2(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    for g in got:
+        card, cpu = g["cuda:0"], g["cpu"]
+        for name, want in cpu["bn"].items():
+            assert _rel(card["bn"][name], want) <= RTOL, name
+        assert card["launches"] > 0 and cpu["launches"] == 0
+        assert abs(card["loss"] - cpu["loss"]) <= 1e-4 * abs(cpu["loss"])
+        names = sorted(cpu["grads"])
+        assert rel_l2(torch.cat([card["grads"][n].ravel() for n in names]),
+                      torch.cat([cpu["grads"][n].ravel() for n in names])) <= 1e-2
+        for stats in (False, True):
+            keys = [n for n in sorted(cpu["after"]) if ("running" in n) == stats]
+            assert rel_l2(torch.cat([card["after"][n].ravel() for n in keys]),
+                          torch.cat([cpu["after"][n].ravel() for n in keys])) <= 1e-4
+    for n, t in got[0]["cuda:0"]["after"].items():
+        assert torch.equal(t, got[1]["cuda:0"]["after"][n]), n

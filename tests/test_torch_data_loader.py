@@ -174,10 +174,14 @@ def test_valid_rows_equal_two_workers():
 
 
 def test_num_devices_raises():
-    with pytest.raises(NotImplementedError):
-        initialize_data_loader(SyntheticTiny20Dataset, Config(ignore_label=255),
-                               "train", 1, True, True, True, 1, 10_000_000,
-                               num_devices=2, device="cpu")
+    """A sharded loader needs its rank (no default shard for every rank),
+    and a rank inside the world."""
+    args = (SyntheticTiny20Dataset, Config(ignore_label=255),
+            "train", 1, True, True, True, 1, 10_000_000)
+    with pytest.raises(ValueError, match="rank"):
+        initialize_data_loader(*args, num_devices=2, device="cpu")
+    with pytest.raises(ValueError, match="rank 2"):
+        initialize_data_loader(*args, num_devices=2, device="cpu", rank=2)
 
 
 def test_cuda_without_card_raises():

@@ -415,10 +415,14 @@ def test_insseg_defaults_to_the_card(tmp_path):
         main(CLI_ARGS + ["--log_dir", str(tmp_path / "cli")])
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(num_devices=2), "item 5"), (dict(compute_dtype="bfloat16"), "float32")])
-def test_unported_insseg_options_raise(tmp_path, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(num_devices=2), RuntimeError, "torchrun"),
+    (dict(compute_dtype="bfloat16"), NotImplementedError, "float32"),
+], ids=["kw0-item 5", "kw1-float32"])
+def test_unported_insseg_options_raise(tmp_path, kw, exc, match):
+    """bfloat16 is not ported; more than one device without a process
+    group (one process per rank) raises naming torchrun."""
+    with pytest.raises(exc, match=match):
         _port(tmp_path, **kw)
 
 

@@ -113,18 +113,20 @@ def test_select_mode_equals_jax(kw):
     assert select_mode(Config(**_kw(**kw))) == jax_trainer.select_mode(JaxConfig(**_kw(**kw)))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(dataset="SyntheticInstanceDataset", num_devices=2), "item 5"),
-    (dict(model="ClassifierNet"), "item 7"),
-    (dict(classifier_resample_features=True), "item 7"),
-    (dict(wrapper_type="BilateralCRF"), "item 6"),
-    (dict(num_devices=2), "item 5"),
-])
-def test_unported_modes_raise(tmp_path, kw, item):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(dataset="SyntheticInstanceDataset", num_devices=2), RuntimeError, "torchrun"),
+    (dict(model="ClassifierNet"), NotImplementedError, "item 7"),
+    (dict(classifier_resample_features=True), NotImplementedError, "item 7"),
+    (dict(wrapper_type="BilateralCRF"), NotImplementedError, "item 6"),
+    (dict(num_devices=2), RuntimeError, "torchrun"),
+], ids=["kw0-item 5", "kw1-item 7", "kw2-item 7", "kw3-item 6", "kw4-item 5"])
+def test_unported_modes_raise(tmp_path, kw, exc, match):
     """Each mode's trainer as cli.main picks it: instance datasets go to
-    InssegTrainer, the rest to Trainer."""
+    InssegTrainer, the rest to Trainer. The unported modes raise naming
+    their ROADMAP item; more than one device without a process group
+    (one process per rank) raises naming torchrun."""
     cfg = Config(**_kw(log_dir=str(tmp_path / "run"), **kw))
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         if select_mode(cfg) == "insseg":
             InssegTrainer(cfg, dataset_cls=load_instance_dataset(cfg.dataset), device="cpu")
         else:
