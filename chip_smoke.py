@@ -31,7 +31,16 @@ the baseline run, then two spawned ranks sharing the card over gloo (the
 baseline's flags and the insseg flags with ``--num_devices 2``; parameters
 bit-equal across ranks, launches checked per rank, the all-reduced
 validation against one process's) and one two-rank train step card vs
-CPU. Each phase prints one JSON line; the last line is
+CPU. Then the rest of the model zoo: ``cli.main.main`` with the same
+flags and ``--model Res16UNet50`` (Bottleneck blocks), then with
+``--wrapper_type BilateralCRF`` around Res16UNet34C at the size its
+brute-force kNN allows (one 10,000-point scene a batch), launches checked
+the same way, the CRF's coins and compatibility recorded; and one eval
+forward and train step card vs CPU for each family (Res16UNet50,
+ResUNet14, MinkUNetHyper14INBN, Res16UNet34Dv3, Res16UNet34CR_Proj, an SE
+Res16UNet, ResNet14, STRes16UNet14A on a 4-D cloud). The kernels phase
+also holds sel_fwd, dw and csum at the widths Res16UNet50 adds. Each
+phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. It needs a CUDA device and imports
 nothing of JAX.
@@ -95,6 +104,13 @@ DW_SHAPES = ((288, 96, "l0.k3"), (9, 32, "l0.k3"), (96, 32, "l1.k3"))
 # sel_fwd in phase kernels: (c_run, k3 map) of block8's convs, conv0 and
 # block5's dX at L0, and of block4's convs at L4 (4,096 rows)
 SEL_SHAPES = ((96, "l0.k3"), (32, "l0.k3"), (384, "l0.k3"), (256, "l4.k3"))
+# the rest of the model zoo's new kernel widths (phase kernels, held and
+# timed on the main-path batch's maps): Res16UNet50's L0 bottleneck k3
+# convs run sel_fwd at 256 channels (forward and dX) and dw at (3 x 256,
+# 256); its up convs' dX runs csum at 1024 (every decoder input is 4 x 256)
+ZOO_SEL_SHAPES = ((256, "l0.k3"),)
+ZOO_DW_SHAPES = ((768, 256, "l0.k3"),)
+ZOO_CSUM_WIDTHS = (1024,)
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
@@ -227,10 +243,12 @@ def ms_windowed(gm) -> bool:
 def expected_launches(model, graph, train: bool = False) -> dict:
     """Launches the routing must make in one forward (or, with ``train``,
     one train step): per k3 conv whose map carries a usable window
-    annotation, one sel_fwd (train: another for its dX, except conv0, whose
-    input features take no gradient, and one dw); per down conv on a
-    windowed map, one csum (train: another for the dX of its up conv, which
-    runs the child-sum direction of the same map)."""
+    annotation, one sel_fwd (train: another for its dX, except the conv
+    that takes the input features, whose dX is never asked for, and one
+    dw); per down conv on a windowed map, one csum (train: another for the
+    dX of its up conv, which runs the child-sum direction of the same
+    map). A wrapper is seen through to its ``base``; a down map's input
+    level is read from the model's graph spec."""
     from languagegroundedsemseg_torch.models.layers import SparseConv
     from languagegroundedsemseg_torch.ops.onehot_conv import _cs_window
     from languagegroundedsemseg_torch.sparse.types import (
@@ -238,6 +256,10 @@ def expected_launches(model, graph, train: bool = False) -> dict:
         MaskedShiftMap,
     )
 
+    while hasattr(model, "base"):
+        model = model.base
+    first = model.input_conv()
+    spec = type(model).graph_spec()
     want = {"sel_fwd": 0, "csum": 0, "dw": 0}
     for mod in model.modules():
         if not isinstance(mod, SparseConv) or mod.map_name is None:
@@ -248,9 +270,10 @@ def expected_launches(model, graph, train: bool = False) -> dict:
                 want["sel_fwd"] += 1
                 if train:
                     want["dw"] += 1
-                    want["sel_fwd"] += mod is not model.conv0p1s1
+                    want["sel_fwd"] += mod is not first
         elif isinstance(gm, ChildSumMap):
-            if _cs_window(gm, graph.levels[int(mod.map_name[4:])].capacity)[0]:
+            cap_in = graph.levels[spec.maps[mod.map_name].level_in].capacity
+            if _cs_window(gm, cap_in)[0]:
                 want["csum"] += 1
         elif train and gm is None:
             cgm = graph.gmaps.get(graph.maps[mod.map_name].companion)
@@ -629,7 +652,9 @@ def phase_kernels(graph, bw: float) -> dict:
     """Each kernel against its plain version on the main-path batch's maps,
     at the widths the main path gives it: sel_fwd at 96 / 32 (forward) and
     384 (block5's dX) on the L0 map and 256 on the L4 map (4,096 rows);
-    csum at 32 / 96 (forward) and 256 (up-conv dX); dw at DW_SHAPES."""
+    csum at 32 / 96 (forward) and 256 (up-conv dX); dw at DW_SHAPES. Then
+    the widths Res16UNet50 (phase zoo_path) adds: ZOO_SEL_SHAPES,
+    ZOO_CSUM_WIDTHS, ZOO_DW_SHAPES."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for c_run, map_name in SEL_SHAPES:
@@ -641,9 +666,18 @@ def phase_kernels(graph, bw: float) -> dict:
     for cw, c_out, map_name in DW_SHAPES:
         results[("dw", cw)] = dw_record(graph, cw, c_out, gen, map_name)
 
-    for rec in results.values():
+    # the widths the rest of the zoo adds (phase zoo_path's Res16UNet50)
+    for c_run, map_name in ZOO_SEL_SHAPES:
+        results[("sel_fwd", "zoo", c_run)] = sel_record(graph, c_run, gen, map_name)
+    for c_run in ZOO_CSUM_WIDTHS:
+        results[("csum", "zoo", c_run)] = csum_record(graph, c_run, gen)
+    for cw, c_out, map_name in ZOO_DW_SHAPES:
+        results[("dw", "zoo", cw)] = dw_record(graph, cw, c_out, gen, map_name)
+
+    for key, rec in results.items():
         _bound(rec, bw)
-        emit({"phase": "kernels", **rec})
+        emit({"phase": "kernels", **rec,
+              **({"shape_of": "zoo_path"} if "zoo" in key else {})})
     return results
 
 
@@ -1031,10 +1065,10 @@ def parity_batch(device, seed: int = 1):
 
 
 def scaled_model(device, seed: int = 1, model_cls=None):
-    """Res16UNet34C (200 classes; or ``model_cls``, a subclass of
-    Res16UNetBase) with well-conditioned random weights:
-    kernels N(0, 0.36 / fan_in), BN scales and running variances in
-    [0.6, 1.4], biases and running means 0.1 * N(0, 1). Activations stay
+    """Res16UNet34C (200 classes; or ``model_cls``, any model of the zoo)
+    with well-conditioned random weights: kernels and linear weights
+    N(0, 0.36 / fan_in), norm scales and running variances in [0.6, 1.4],
+    biases and running means 0.1 * N(0, 1). Activations stay
     O(1) through the depth. (The bench's weights make the net chaotic —
     logits near 1e10, and a 1e-6 input perturbation moves them by about
     1e-2 — so a comparison under them measures the weights, not the
@@ -1046,10 +1080,13 @@ def scaled_model(device, seed: int = 1, model_cls=None):
     sd = {}
     for name, t in model.state_dict().items():
         shape = tuple(t.shape)
-        if name.endswith(("running_var", "bn.weight")):
+        if name.endswith(("running_var", "bn.weight")) or (
+                name.endswith("weight") and len(shape) == 1):  # any norm
             v = rng.uniform(0.6, 1.4, size=shape)
         elif name.endswith(("bias", "running_mean")):
             v = 0.1 * rng.standard_normal(shape)
+        elif name.endswith("weight"):  # nn.Linear: (out, in)
+            v = rng.standard_normal(shape) * (0.6 / np.sqrt(shape[-1]))
         else:
             v = rng.standard_normal(shape) * (0.6 / np.sqrt(np.prod(shape[:-1])))
         sd[name] = torch.tensor(v, dtype=torch.float32)
@@ -1566,7 +1603,7 @@ def _recording_trainer():
             RecordingTrainer.instances.append(self)
             self.want = {"sel_fwd": 0, "csum": 0, "dw": 0}
             self.n_train = self.n_eval = 0
-            self.losses, self.step_s, self.val_s = [], [], []
+            self.losses, self.step_s, self.val_s, self.coins = [], [], [], []
             self._mark = None
             train, evaluate, save = self.p_train_step, self.p_eval_step, self.ckpt.save
 
@@ -1574,6 +1611,7 @@ def _recording_trainer():
                 for k, v in expected_launches(self.model, batch.graph, True).items():
                     self.want[k] += v
                 out = train(state, batch, gen)
+                self.last_batch = batch
                 self.losses.append(float(out[1]["loss"]))  # syncs
                 now = time.perf_counter()
                 self.step_s.append(now - self._mark)
@@ -1591,8 +1629,20 @@ def _recording_trainer():
                 save(*args, **kwargs)
                 self._mark = time.perf_counter()
 
+            self.raw_train_step = train
             self.p_train_step, self.p_eval_step = train_step, eval_step
             self.ckpt.save = ckpt_save
+            draw = getattr(self.model, "draw_coin", None)
+            if draw is not None:
+                def draw_coin(gen):
+                    coin = draw(gen)
+                    self.coins.append(coin)
+                    return coin
+
+                self.model.draw_coin = draw_coin
+            crf = getattr(self.model, "crf", None)
+            self.crf0 = (None if crf is None
+                         else crf.compatibility.detach().clone())
 
         def validate(self, *args, **kwargs):
             t0 = time.perf_counter()
@@ -1638,20 +1688,22 @@ def _checked_restore(restore, log):
 
 
 def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
-                 resumed: dict = None, keep_state: bool = False) -> dict:
+                 resumed: dict = None, keep_state: bool = False,
+                 patches: tuple = (), extra=None) -> dict:
     """One ``cli.main.main(argv)`` on the card with every launch count set
     to 0 just before it, checked just after against the launches of every
     train step and eval forward it ran. ``argv`` trains to epoch
     ``epochs``: the state must end at ``epochs`` x len(train_loader)
     steps, with a record for each epoch this run trained. ``keep_state``
-    adds the final state dict (on the CPU) under ``"state"``."""
+    adds the final state dict (on the CPU) under ``"state"``; ``patches``
+    are entered around the run; ``extra(trainer)`` adds its fields."""
     from languagegroundedsemseg_torch.cli.main import main as cli_main
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
     from languagegroundedsemseg_torch.train import trainer as trainer_mod
 
     recording = _recording_trainer()
-    patches = [mock.patch.object(trainer_mod, "Trainer", recording)]
+    patches = [mock.patch.object(trainer_mod, "Trainer", recording), *patches]
     if resumed is not None:
         patches.append(mock.patch.object(
             trainer_mod, "restore_checkpoint",
@@ -1725,6 +1777,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
             "launches": launches, "expected_launches": tr.want,
             "ablation_launches": ablation,
             **({"resumed": resumed} if resumed is not None else {}),
+            **(extra(tr) if extra is not None else {}),
             **({"state": {k: v.detach().cpu().clone()
                           for k, v in tr.model.state_dict().items()}}
                if keep_state else {})}
@@ -2444,6 +2497,270 @@ def phase_ddp_path(trainer_rec: dict) -> dict:
     return rec
 
 
+# phase zoo_path: the rest of the model zoo through the entry points
+# (a) Res16UNet50 with trainer_path (a)'s flags; (b) the bilateral CRF
+# around Res16UNet34C at the size its O(N^2) kNN allows: one scene of
+# CRF_POINTS points a batch at a level-0 capacity of CRF_CAP (trainer_path's
+# 16 scenes, 2 epochs); (c) one eval forward and one train step per family
+# card vs CPU on the parity batch
+ZOO_EPOCHS = 2
+CRF_POINTS, CRF_CAP = 10_000, 16384
+CRF_ARGV = ["--model", "Res16UNet34C", "--wrapper_type", "BilateralCRF",
+            "--batch_size", "1", "--val_batch_size", "1",
+            "--fixed_capacity", str(CRF_CAP), "--meanfield_iterations", "10"]
+# (c)'s families: (registered class, class attributes that narrow it (the
+# CPU half of a full-width one takes too long), 4-D cloud?)
+ZOO_FAMILIES = (
+    ("Res16UNet50", {"LAYERS": (1,) * 8}, False),
+    ("ResUNet14", {}, False),
+    ("MinkUNetHyper14INBN", {}, False),
+    ("Res16UNet34Dv3", {"LAYERS": (1,) * 8,
+                        "PLANES": (32, 64, 128, 256, 128, 128, 96, 96)}, False),
+    ("Res16UNet34CR_Proj", {}, False),
+    ("Res16UNet14", {"BLOCK": "se_basic"}, False),
+    ("ResNet14", {}, False),
+    ("STRes16UNet14A", {}, True),
+)
+ST_FRAMES = 3
+
+
+def crf_dataset():
+    """trainer_path's dataset at CRF_POINTS points a scene."""
+    from languagegroundedsemseg_torch.data.synthetic_dataset import (
+        Synthetic200Voxelization2cmDataset,
+    )
+
+    class SyntheticCRF(Synthetic200Voxelization2cmDataset):
+        POINTS_PER_SCENE = CRF_POINTS
+
+    return SyntheticCRF
+
+
+def _step_alone(tr) -> dict:
+    """Host ms of three synced train steps on the run's last batch once
+    its loaders are idle (what a step costs without the loader's wait),
+    and that batch's level-0 rows."""
+    ms = _idle_step_ms(lambda st, b: tr.raw_train_step(st, b, tr.generator),
+                       tr.state, tr.last_batch)
+    return {"step_alone_ms": ms,
+            "last_batch_rows_l0": int(tr.last_batch.graph.levels[0].mask().sum())}
+
+
+def _crf_extra(tr) -> dict:
+    """The CRF's coins, its compatibility's change over the run, its
+    parameter group's lr against the rest's, a step alone, and the CRF's
+    own cost on the last batch: the blocked kNN, and the mean-field
+    forward + backward (random unaries, CUDA events, median of 3)."""
+    from languagegroundedsemseg_torch.ops.points import knn
+
+    crf_mod = tr.model.crf
+    b = tr.last_batch.decompact()
+    lvl0 = b.graph.levels[0]
+    cap = lvl0.capacity
+    xyz, colors = lvl0.coords[:, 1:4], (b.feats[:, :3] + 0.5) * 255.0
+    feat = torch.cat([xyz.float() / crf_mod.spatial_sigma,
+                      colors / crf_mod.chromatic_sigma], dim=1)
+    k = crf_mod.num_neighbors + 1
+    unaries = torch.randn((cap, crf_mod.compatibility.shape[0]),
+                          device=feat.device, requires_grad=True)
+
+    def mean_field():
+        crf_mod(unaries, xyz, colors, lvl0.mask()).sum().backward()
+
+    crf = crf_mod.compatibility.detach()
+    groups = tr.state.optimizer.inner.param_groups
+    d = crf - tr.crf0.to(crf.device)
+    coins = [bool(c) for c in tr.coins]
+    return {**_step_alone(tr), "crf_capacity": cap,
+            "knn_ms": cuda_ms(lambda: knn(feat, feat, k, lvl0.mask()), 3, 1),
+            "mean_field_fwd_bwd_ms": cuda_ms(mean_field, 3, 1),
+            "coins": coins, "coins_true": sum(coins),
+            "compat_max_abs_change": float(d.abs().max()),
+            "compat_rel_change": float(torch.linalg.norm(d) / torch.linalg.norm(tr.crf0)),
+            "lr_groups": [g["lr"] for g in groups],
+            "lr_factor": groups[1].get("lr_factor")}
+
+
+def zoo_parity_batch(model_cls, four_d: bool, device):
+    """The parity scene (PARITY_POINTS points) in ``model_cls``'s graph at
+    PARITY_CAP; a 4-D family gets it as ST_FRAMES frames, every third
+    voxel in each (frame t = the voxels whose index is t mod ST_FRAMES)."""
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.data.synthetic import voxelize_scene
+    from languagegroundedsemseg_torch.sparse import graph_host as gh
+    from languagegroundedsemseg_torch.train.step import TrainBatch
+
+    coords, feats, labels = voxelize_scene(np.random.default_rng(1), PARITY_POINTS)
+    spec = model_cls.graph_spec(3)
+    if not four_d:
+        return BatchBuilder(spec=spec, fixed_capacity=PARITY_CAP).build(
+            [(coords, feats, labels)], device=device)
+    n = len(coords)
+    c4 = np.concatenate([np.zeros((n, 1), np.int32), coords.astype(np.int32),
+                         (np.arange(n) % ST_FRAMES)[:, None].astype(np.int32)], 1)
+    order = np.argsort(gh.pack_keys(c4), kind="stable")
+    caps = gh.default_capacities(PARITY_CAP, spec.num_levels)
+    graph = gh.build_graph(c4[order], spec, caps)
+    f = np.zeros((caps[0], 3), np.float32)
+    f[:n] = feats[order]
+    lab = np.full(caps[0], 255, np.int32)
+    lab[:n] = labels[order]
+    return TrainBatch(f, lab, graph).to(device)
+
+
+def _zoo_outputs(model, batch, device, noise_seed=None) -> dict:
+    """The eval forward's output, then one SGD step (CE with ignore label
+    255 over the level-0 rows; a ResNet's stride-32 output has no labels,
+    so its loss is the mean square of its valid rows) with the train-mode
+    output caught in the objective. ``noise_seed`` moves the input
+    features by 1e-6, relative."""
+    from languagegroundedsemseg_torch.losses.classification import cross_entropy_loss
+    from languagegroundedsemseg_torch.models.resnet import ResNetBase
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_eval_step, make_train_step
+
+    if noise_seed is not None:
+        gen = torch.Generator(device=batch.feats.device).manual_seed(noise_seed)
+        noise = torch.randn(batch.feats.shape, generator=gen, device=batch.feats.device)
+        batch = batch.replace(feats=batch.feats * (1 + 1e-6 * noise))
+    rows = batch.graph.levels[-1 if isinstance(model, ResNetBase) else 0]
+    valid = rows.mask().cpu() > 0
+    eval_out = make_eval_step(model, device=device)(batch)[0]
+    caught = []
+
+    def objective(out, _features, b, _gen, row_mask):
+        caught.append(out.detach())
+        if out.shape[0] != row_mask.shape[0]:
+            m = rows.mask()
+            return ((out ** 2).sum(-1) * m).sum() / m.sum(), {}
+        return cross_entropy_loss(out, b.labels, 255, row_mask=row_mask), {}
+
+    opt = sgd_torch(model.parameters(), TRAIN_LR)
+    step = make_train_step(model, opt, objective, device=device)
+    _, m = step(TrainState(model, opt), batch)
+    return {"eval": eval_out.cpu()[valid], "train": caught[0].cpu()[valid],
+            "loss": float(m["loss"])}
+
+
+def zoo_card_vs_cpu() -> list:
+    """(c) per family: the card's eval output, train-mode output and loss
+    against the CPU's plain path, same conditioned weights (scaled_model),
+    the parity batch. Held as insseg_path holds them: the loss to
+    TRAIN_LOSS_RTOL, the train-mode output to twice the largest gap 1e-6
+    input noise (three draws) makes on the card itself, or PARITY_RTOL
+    where that is larger (PERF.md §6); the eval output to
+    PARITY_RTOL, or by the train-mode rule in a family with an instance
+    norm, which normalizes by the batch's own statistics in eval mode too
+    (a 1e-6 input change moves MinkUNetHyper14INBN's eval output by
+    ~9e-3 on the card); the
+    launches of the card's forward and step equal ``expected_launches``:
+    all three kernels on the Res16UNet-spec families, none on ResNet, at
+    most csum (the down / up maps) on the ST variant."""
+    from languagegroundedsemseg_torch.models import load_model
+    from languagegroundedsemseg_torch.models.layers import SparseInstanceNorm
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+
+    out = []
+    for name, narrow, four_d in ZOO_FAMILIES:
+        cls = load_model(name)
+        if narrow:
+            cls = type(name, (cls,), dict(narrow))
+        base = scaled_model("cuda", model_cls=cls)
+        t0 = time.perf_counter()
+        batch = zoo_parity_batch(cls, four_d, "cuda")
+        want = {k: a + b for k, a, b in (
+            (k, expected_launches(base, batch.graph)[k],
+             expected_launches(base, batch.graph, train=True)[k])
+            for k in ("sel_fwd", "csum", "dw"))}
+        oc.reset_launch_counts()
+        card = _zoo_outputs(copy.deepcopy(base), batch, "cuda")
+        launches = dict(oc.launch_counts)
+        noise = [_zoo_outputs(copy.deepcopy(base), batch, "cuda", seed)
+                 for seed in range(3)]
+        card_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cpu = _zoo_outputs(copy.deepcopy(base).to("cpu"),
+                           zoo_parity_batch(cls, four_d, "cpu"), "cpu")
+        cpu_s = time.perf_counter() - t1
+        gap = {"eval": _rel_l2(card["eval"], cpu["eval"]),
+               "train": _rel_l2(card["train"], cpu["train"]),
+               "loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])}
+        noise_gap = {k: max(_rel_l2(n[k], card[k]) for n in noise)
+                     for k in ("eval", "train")}
+        inorm = any(isinstance(m, SparseInstanceNorm) for m in base.modules())
+        limit = {"eval": (max(PARITY_RTOL, 2 * noise_gap["eval"]) if inorm
+                          else PARITY_RTOL),
+                 "loss": TRAIN_LOSS_RTOL,
+                 "train": max(PARITY_RTOL, 2 * noise_gap["train"])}
+        rec = {"family": name, "narrowed": narrow or "full width",
+               "four_d": four_d, "instance_norm": inorm,
+               "n_rows": int(card["eval"].shape[0]),
+               "loss": card["loss"], "card_vs_cpu": gap,
+               "card_input_noise_1e-6": noise_gap, "limits": limit,
+               "launches": launches, "expected_launches": want,
+               "card_s": card_s, "cpu_s": cpu_s}
+        out.append(rec)
+        if launches != want or not all(gap[k] <= limit[k] for k in limit):
+            raise AssertionError(f"zoo_path (c) {name}: {rec}")
+        # ResNet's maps carry no annotation; the ST k3 maps neither, but
+        # their down maps' child-sum partition runs csum when windowed
+        ran = {k for k, v in launches.items() if v}
+        if ran != ({"csum"} & ran if four_d else set()
+                   if name.startswith("ResNet") else {"sel_fwd", "csum", "dw"}):
+            raise AssertionError(f"zoo_path (c) {name}: launches {launches}")
+    return out
+
+
+def phase_zoo_path() -> dict:
+    """The rest of the model zoo on the card. (a) ``cli.main`` with
+    trainer_path (a)'s flags and ``--model Res16UNet50`` (Bottleneck
+    blocks, a decoder 1,024 channels wide at every level), ZOO_EPOCHS
+    epochs: launches equal Σ ``expected_launches``, the loss falls, peak
+    memory recorded. (b) ``--wrapper_type BilateralCRF`` around
+    Res16UNet34C at CRF_POINTS points a scene, batch 1, capacity CRF_CAP:
+    the coins drawn, the compatibility's change, its group's lr
+    (wrapper_lr), launches equal Σ ``expected_launches`` of the base
+    model. (c) card vs CPU per family (``zoo_card_vs_cpu``)."""
+    from languagegroundedsemseg_torch.config import Config
+    from languagegroundedsemseg_torch.data import loader as loader_mod
+
+    name = "Synthetic200Voxelization2cmDataset"
+    loader_mod.load_dataset(name)  # the registry filled
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="lgs_zoo_path_") as tmp:
+        a = _trainer_run("res16unet50", LEARNING_CURVE_ARGV + [
+            "--max_epoch", str(ZOO_EPOCHS), "--model", "Res16UNet50",
+            "--log_dir", os.path.join(tmp, "a")], ZOO_EPOCHS, ("val_miou",),
+            extra=_step_alone)
+        if not a["last_loss"] < a["first_loss"]:
+            raise AssertionError(f"zoo_path (a): the loss did not fall {a['losses']}")
+        b = _trainer_run("bilateral_crf", LEARNING_CURVE_ARGV + CRF_ARGV + [
+            "--max_epoch", str(ZOO_EPOCHS), "--log_dir", os.path.join(tmp, "b")],
+            ZOO_EPOCHS, ("val_miou",),
+            patches=(mock.patch.dict(loader_mod._DATASETS, {name: crf_dataset()}),),
+            extra=_crf_extra)
+    ab_s = time.perf_counter() - t0
+    b.pop("state", None)
+    lr = float(LEARNING_CURVE_ARGV[LEARNING_CURVE_ARGV.index("--lr") + 1])
+    if not (b["coins"] and len(b["coins"]) == b["steps"]
+            and b["compat_max_abs_change"] > 0
+            and abs(b["lr_factor"] - Config().wrapper_lr / lr) < 1e-12):
+        raise AssertionError(f"zoo_path (b): {b}")
+    t1 = time.perf_counter()
+    c = zoo_card_vs_cpu()
+    rec = {"phase": "zoo_path", "argv": LEARNING_CURVE_ARGV, "runs": [a, b],
+           "families": c,
+           "launches": {k: a["launches"][k] + b["launches"][k]
+                        + sum(f["launches"][k] for f in c) for k in a["launches"]},
+           "ab_s": ab_s, "c_s": time.perf_counter() - t1,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+
+
 _REPLACES = {
     "sel_fwd": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:77", 96),
     "csum": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:618", 32),
@@ -2493,6 +2810,7 @@ def main() -> int:
     trainer = phase_trainer_path()
     insseg = phase_insseg_path()
     ddp = phase_ddp_path(trainer)
+    zoo = phase_zoo_path()
 
     # one row per kernel, at its main forward width (dw: block8's convs);
     # launches per train step, beside the forward's
@@ -2508,6 +2826,7 @@ def main() -> int:
             "launches_trainer": trainer["launches"][name],
             "launches_insseg": insseg["launches"][name],
             "launches_ddp": ddp["launches"][name],
+            "launches_zoo": zoo["launches"][name],
             "width": width, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -2526,7 +2845,7 @@ def main() -> int:
             "launches_e2e": e2e["ablation_launches"][name],
             "launches_trainer": trainer["ablation_launches"][name],
             "launches_insseg": insseg["ablation_launches"][name],
-            "launches_ddp": 0,
+            "launches_ddp": 0, "launches_zoo": 0,
             "launches_per_ablation": ablation["launches"][name],
             "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

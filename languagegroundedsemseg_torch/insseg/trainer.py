@@ -140,7 +140,8 @@ class InssegTrainer:
         makes it from ``config.num_devices`` and ``device``."""
         if config.compute_dtype != "float32":
             raise NotImplementedError(
-                "the port computes in float32: compute_dtype must be 'float32'")
+                "the port computes in float32: compute_dtype must be 'float32' "
+                "(ROADMAP Queue 1, item 9)")
         self.mesh = mesh or make_mesh(config.num_devices, device)
         self.device = self.mesh.device
         self.group, self.rank, self.world = self.mesh.group, self.mesh.rank, self.mesh.world

@@ -2,17 +2,20 @@
 load_model() / load_wrapper() string lookup (reference
 models/__init__.py:33-50).
 
-Counterpart of ``languagegroundedsemseg_tpu/models/__init__.py``. Only the
-classes the port has are registered: the BasicBlock Res16UNet variants and
-the CLIP variants Res16UNet34CR and Res16UNet34D.
+Counterpart of ``languagegroundedsemseg_tpu/models/__init__.py``: every
+class with "Net" in its name from res16unet, clip_models, classifier,
+resnet and resunet is registered, as in JAX.
 """
 
 from __future__ import annotations
 
 import inspect
 
+from languagegroundedsemseg_torch.models import classifier as _classifier
 from languagegroundedsemseg_torch.models import clip_models as _clip_models
 from languagegroundedsemseg_torch.models import res16unet as _res16unet
+from languagegroundedsemseg_torch.models import resnet as _resnet
+from languagegroundedsemseg_torch.models import resunet as _resunet
 from languagegroundedsemseg_torch.models.res16unet import (
     Res16UNetBase,
     res16unet_graph_spec,
@@ -31,20 +34,28 @@ def register(cls=None, name: str | None = None):
 
 def _register_module_nets(module):
     for nm, cls in inspect.getmembers(module, inspect.isclass):
-        if "Net" in nm and issubclass(cls, Res16UNetBase) and cls is not Res16UNetBase:
+        if "Net" in nm:
             _REGISTRY[nm] = cls
 
 
-_register_module_nets(_res16unet)
-_register_module_nets(_clip_models)
+for _m in (_res16unet, _clip_models, _classifier, _resnet, _resunet):
+    _register_module_nets(_m)
 
 
 def load_wrapper(name: str) -> type:
-    """The CRF wrappers (reference models/__init__.py:50) come with the
-    rest of the model zoo (ROADMAP Queue 1, item 6)."""
-    raise NotImplementedError(
-        f"wrapper {name!r}: the CRF wrappers are not ported yet "
-        "(ROADMAP Queue 1, item 6)")
+    """Wrapper registry (reference models/__init__.py:50): CRF post-filters
+    around a base model."""
+    from languagegroundedsemseg_torch.models.crf import (
+        BilateralCRF,
+        TrilateralCRF,
+        Wrapper,
+    )
+
+    wrappers = {"Wrapper": Wrapper, "BilateralCRF": BilateralCRF,
+                "TrilateralCRF": TrilateralCRF}
+    if name not in wrappers:
+        raise KeyError(f"unknown wrapper {name!r}; available: {sorted(wrappers)}")
+    return wrappers[name]
 
 
 def load_model(name: str) -> type:

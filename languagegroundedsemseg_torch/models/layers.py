@@ -1,9 +1,10 @@
-"""Layers over sparse voxel grids: conv, batch norm, norm dispatcher.
+"""Layers over sparse voxel grids: conv, norms, squeeze-excitation.
 
 Counterpart of ``languagegroundedsemseg_tpu/models/layers.py``. Parameter
 names follow the reference state_dict: a conv holds ``kernel`` (and
 ``bias``), a norm holds its batch norm as ``bn`` with ``weight``, ``bias``,
-``running_mean`` and ``running_var``.
+``running_mean`` and ``running_var``, and its instance norm as ``inorm``
+with ``weight`` and ``bias``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from languagegroundedsemseg_torch.ops.spconv import (
     sparse_conv,
     sparse_conv_parent,
 )
+from languagegroundedsemseg_torch.ops.segment import batch_broadcast, batch_mean
 from languagegroundedsemseg_torch.parallel.collectives import AllReduceSum, group_size
 from languagegroundedsemseg_torch.sparse.types import (
     ChildSumMap,
@@ -164,14 +166,112 @@ def convert_sync_batchnorm(model: nn.Module, process_group) -> nn.Module:
     return model
 
 
-class Norm(nn.Module):
-    """The reference's norm dispatcher, batch norm only: Res16UNet34C uses
-    nothing else (the instance / layer norms come with the model zoo). The
-    batch norm is held as ``bn``, as the reference state_dict names it."""
+class SparseInstanceNorm(nn.Module):
+    """Per-batch-item normalization over each sample's valid rows
+    (ME.MinkowskiInstanceNorm): the mean and biased variance of each of
+    ``max_batch`` items, broadcast back to its rows; the same in train and
+    eval mode."""
 
-    def __init__(self, channels: int, momentum: float = 0.02, device="cuda"):
+    def __init__(self, channels: int, eps: float = 1e-5, max_batch: int = 32,
+                 device="cuda"):
         super().__init__()
-        self.bn = SparseBatchNorm(channels, momentum=momentum, device=device)
+        dev = resolve_device(device)
+        self.eps, self.max_batch = eps, max_batch
+        self.weight = nn.Parameter(torch.ones(channels, device=dev))
+        self.bias = nn.Parameter(torch.zeros(channels, device=dev))
 
-    def forward(self, x, mask):
-        return self.bn(x, mask)
+    def forward(self, x: torch.Tensor, batch_idx: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = batch_broadcast(batch_mean(xf, batch_idx, mask, self.max_batch),
+                               batch_idx)
+        d = (xf - mean) * mask.to(torch.float32)[:, None]
+        var = batch_broadcast(batch_mean(d * d, batch_idx, mask, self.max_batch),
+                              batch_idx)
+        return (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+class SparseLayerNorm(nn.Module):
+    """The reference's custom MinkowskiLayerNorm (models/layers.py:7-46):
+    each row shifted by its batch item's mean, then scaled by its own
+    variance over the channels."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, max_batch: int = 32,
+                 device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.eps, self.max_batch = eps, max_batch
+        self.weight = nn.Parameter(torch.ones(channels, device=dev))
+        self.bias = nn.Parameter(torch.zeros(channels, device=dev))
+
+    def forward(self, x: torch.Tensor, batch_idx: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        d = xf - batch_broadcast(batch_mean(xf, batch_idx, mask, self.max_batch),
+                                 batch_idx)
+        var = (d * d).mean(dim=-1, keepdim=True)
+        return d * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+class SELayer(nn.Module):
+    """Squeeze-excitation over sparse rows (reference
+    models/modules/senet_block.py:9-24): per-item mean pool -> linear
+    (``fc1``, channels / reduction) -> relu -> linear (``fc2``) -> sigmoid
+    gate, broadcast back to the rows."""
+
+    def __init__(self, channels: int, reduction: int = 16, max_batch: int = 32,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_batch = max_batch
+        self.fc1 = linear(channels, channels // reduction, device=device,
+                          generator=generator)
+        self.fc2 = linear(channels // reduction, channels, device=device,
+                          generator=generator)
+
+    def forward(self, x: torch.Tensor, batch_idx: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        pooled = batch_mean(x.to(torch.float32), batch_idx, mask, self.max_batch)
+        gate = torch.sigmoid(self.fc2(torch.relu(self.fc1(pooled))))
+        return x * batch_broadcast(gate, batch_idx)
+
+
+def linear(in_features: int, out_features: int, device="cuda",
+           generator: Optional[torch.Generator] = None) -> nn.Linear:
+    """``nn.Linear`` on ``device`` drawn from ``generator``: weight
+    N(0, 1 / in_features) (LeCun normal; flax Dense's default is its
+    truncated form), bias 0."""
+    lin = nn.Linear(in_features, out_features, device=resolve_device(device))
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((out_features, in_features),
+                                     generator=generator) * in_features ** -0.5)
+        lin.bias.zero_()
+    return lin
+
+
+NORM_TYPES = ("batch", "instance", "instance_batch")
+
+
+class Norm(nn.Module):
+    """The reference's norm dispatcher (get_norm,
+    models/modules/common.py:17-27): ``norm_type`` 'batch' holds a batch
+    norm as ``bn``; 'instance' an instance norm as ``inorm``;
+    'instance_batch' both, the instance norm first."""
+
+    def __init__(self, channels: int, momentum: float = 0.02, device="cuda",
+                 norm_type: str = "batch", max_batch: int = 32):
+        super().__init__()
+        if norm_type not in NORM_TYPES:
+            raise ValueError(f"unknown norm type {norm_type!r}")
+        self.inorm = self.bn = None
+        if norm_type != "batch":
+            self.inorm = SparseInstanceNorm(channels, max_batch=max_batch,
+                                            device=device)
+        if norm_type != "instance":
+            self.bn = SparseBatchNorm(channels, momentum=momentum, device=device)
+
+    def forward(self, x, mask, batch_idx=None):
+        if self.inorm is not None:
+            x = self.inorm(x, batch_idx, mask)
+        if self.bn is not None:
+            x = self.bn(x, mask)
+        return x

@@ -76,16 +76,29 @@ def gather_points(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return feats[idx.long()]
 
 
-def knn(query: torch.Tensor, ref: torch.Tensor, k: int, ref_mask=None):
-    """Brute-force kNN: (M, 3) x (N, 3) -> (dists (M, k), idx (M, k) int32),
-    nearest first."""
+# query rows ranked at a time by knn: (KNN_BLOCK_ROWS, N) of memory, not (M, N)
+KNN_BLOCK_ROWS = 1024
+
+
+def _knn_rows(query, ref, k, mask):
     d2 = _sq_dists(query, ref)
-    if ref_mask is not None:
-        d2 = torch.where(torch.as_tensor(ref_mask, device=d2.device)[None, :] > 0,
-                         d2, torch.full_like(d2, float("inf")))
+    if mask is not None:
+        d2 = torch.where(mask, d2, torch.full_like(d2, float("inf")))
     d2, idx = torch.sort(d2, dim=1, stable=True)
-    d2, idx = d2[:, :k], idx[:, :k]
-    return torch.sqrt(torch.clamp(d2, min=0.0)), idx.to(torch.int32)
+    # new tensors, not views: a block's (rows, N) sort is freed on return
+    return torch.sqrt(torch.clamp(d2[:, :k], min=0.0)), idx[:, :k].to(torch.int32)
+
+
+def knn(query: torch.Tensor, ref: torch.Tensor, k: int, ref_mask=None):
+    """Brute-force kNN: (M, D) x (N, D) -> (dists (M, k), idx (M, k) int32),
+    nearest first, ties to the lower index. Query rows are ranked
+    ``KNN_BLOCK_ROWS`` at a time; each row's ranking is the whole
+    matrix's."""
+    mask = (None if ref_mask is None
+            else torch.as_tensor(ref_mask, device=ref.device)[None, :] > 0)
+    parts = [_knn_rows(query[i:i + KNN_BLOCK_ROWS], ref, k, mask)
+             for i in range(0, max(query.shape[0], 1), KNN_BLOCK_ROWS)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
 def three_nn(query: torch.Tensor, ref: torch.Tensor, ref_mask=None):

@@ -1,8 +1,8 @@
 """Sparse convolution as gather-GEMM-accumulate over kernel offsets.
 
 Counterpart of ``languagegroundedsemseg_tpu/ops/spconv.py``: the flat
-gather-GEMM (``sparse_conv``), the parent-map conv (``sparse_conv_parent``)
-and the pointwise conv. For each kernel slot k the op gathers the neighbor
+gather-GEMM (``sparse_conv``), the parent-map conv (``sparse_conv_parent``),
+the pointwise conv and the average / sum / max pools over a flat table. For each kernel slot k the op gathers the neighbor
 rows the kernel map selects and multiplies them into the f32 accumulator;
 missing neighbors (idx == -1) contribute zero.
 
@@ -213,3 +213,37 @@ def pointwise_conv(x, w, bias=None) -> torch.Tensor:
     if bias is not None:
         out = out + bias
     return out
+
+
+def sparse_avg_pool(x, idx) -> torch.Tensor:
+    """Mean of the existing neighbors over a flat kernel map (K, cap_out)
+    (ME.MinkowskiAvgPooling); rows without one are 0."""
+    s = torch.zeros((idx.shape[1], x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    c = torch.zeros((idx.shape[1], 1), dtype=torch.float32, device=x.device)
+    for ik in idx:
+        s = s + _gather_rows(x, ik).to(torch.float32)
+        c = c + (ik >= 0).to(torch.float32)[:, None]
+    return (s / torch.clamp(c, min=1.0)).to(x.dtype)
+
+
+def sparse_sum_pool(x, idx) -> torch.Tensor:
+    """Sum over a flat kernel map's neighbors (ME.MinkowskiSumPooling)."""
+    s = torch.zeros((idx.shape[1], x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    for ik in idx:
+        s = s + _gather_rows(x, ik).to(torch.float32)
+    return s.to(x.dtype)
+
+
+def sparse_max_pool(x, idx) -> torch.Tensor:
+    """Max over a flat kernel map's existing neighbors; rows without one
+    are 0."""
+    neg = torch.finfo(torch.float32).min
+    m = torch.full((idx.shape[1], x.shape[1]), neg, dtype=torch.float32,
+                   device=x.device)
+    for ik in idx:
+        g = torch.where((ik >= 0)[:, None], _gather_rows(x, ik).to(torch.float32),
+                        torch.full((), neg, device=x.device))
+        m = torch.maximum(m, g)
+    return torch.where(m == neg, torch.zeros((), device=x.device), m).to(x.dtype)

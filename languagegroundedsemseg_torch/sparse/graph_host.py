@@ -1457,3 +1457,9 @@ def _drop_redundant_flat_maps(maps: dict, gmaps: dict, droppable=None) -> None:
                 companion=old.companion,
                 droppable=old.droppable,
             )
+
+
+def map_volume(spec: "GraphSpec", name: str) -> int:
+    """Kernel slots of ``spec``'s map ``name``: the first dimension of the
+    kernel of a conv bound to it."""
+    return len(_map_offsets(spec.maps[name], spec))

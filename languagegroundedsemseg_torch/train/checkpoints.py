@@ -180,6 +180,12 @@ def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     return {_strip_prefixes(k): v.numpy() for k, v in blob.items() if hasattr(v, "numpy")}
 
 
+# modules the port names otherwise than their flax paths (an instance
+# norm's ``inorm``, the SE gate's ``se``): the JAX importer looks a bias up
+# at its flax path, finds none there and skips it, and so does the port
+_RENAMED = frozenset({"inorm", "se"})
+
+
 def _tensor_kind(name: str) -> Tuple[Optional[str], str]:
     """(kind, port name) of a reference tensor name: kind is 'kernel',
     'bn' (affine), 'bn_stat' (running statistics), 'bias', or None for a
@@ -194,7 +200,7 @@ def _tensor_kind(name: str) -> Tuple[Optional[str], str]:
             return "bn", name
         if tail in ("running_mean", "running_var"):
             return "bn_stat", name
-    elif tail == "bias":
+    elif tail == "bias" and not _RENAMED.intersection(parts[:-1]):
         return "bias", name
     return None, name
 

@@ -13,11 +13,13 @@ lib/solvers.py:45-102):
   scale passed as ``lr_scale``.
 
 ``ScheduledOptimizer`` wraps the torch optimizer: before each update it sets
-every param group's ``lr`` to ``schedule(updates) * lr_scale`` (both
-optimizers' state is independent of lr, so this equals scaling the update,
-as the reference's train step does), and with ``iter_size > 1`` it
-accumulates the running mean of the gradients over ``iter_size`` calls and
-updates on the last one, as ``optax.MultiSteps`` does.
+every param group's ``lr`` to ``schedule(updates) * lr_scale`` times the
+group's ``lr_factor`` (1 when absent; the CRF's group trains at
+``wrapper_lr``). Both optimizers' state is independent of lr, so this
+equals scaling the update, as the reference's train step does. With
+``iter_size > 1`` it accumulates the running mean of the gradients over
+``iter_size`` calls and updates on the last one, as ``optax.MultiSteps``
+does.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class ScheduledOptimizer:
             self._acc, self.mini_step = None, 0
         lr = float(self.schedule(self.updates)) * float(lr_scale)
         for group in self.inner.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_factor", 1.0)
         self.inner.step()
         self.updates += 1
         return True

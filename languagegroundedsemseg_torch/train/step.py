@@ -95,7 +95,9 @@ def make_train_step(model, optimizer, objective: Objective,
     with the level-0 row mask, the backward, and ``optimizer``'s update
     scaled by ``state.lr_scale``; then ``state.step += 1``. ``state`` is the
     ``TrainState`` of this model and optimizer. The objective's generator is
-    ``generator`` folded with the step. Metrics (0-d tensors on the device):
+    ``generator`` folded with the step; a model that ``takes_generator``
+    (the CRF wrappers) gets that generator folded with 1. Metrics (0-d
+    tensors on the device):
     the objective's, ``loss``, and ``grad_norm``, the global L2 norm of the
     gradients before the update.
 
@@ -125,8 +127,12 @@ def make_train_step(model, optimizer, objective: Objective,
         # every parameter's gradient, also those the optimizer does not
         # update (classifier_only), so grad_norm reads this step's only
         model.zero_grad(set_to_none=True)
+        kw = {}
+        if gen is not None and getattr(model, "takes_generator", False):
+            # the CRF wrapper's coin (JAX: rngs={"crf": fold_in(key, 1)})
+            kw["generator"] = fold_in(gen, 1)
         outputs = model(batch.feats, batch.graph,
-                        representation_only=representation_only)
+                        representation_only=representation_only, **kw)
         row_mask = batch.graph.levels[0].mask()
         loss, metrics = objective(*outputs, batch, gen, row_mask)
         loss.backward()

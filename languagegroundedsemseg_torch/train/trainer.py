@@ -23,10 +23,18 @@ every rank reads the same metrics (plateau and best-checkpoint decisions
 agree). Rank 0 alone writes the logs, TensorBoard, the checkpoints and the
 profiler trace; each rank dumps the predictions of its own scenes.
 
+CRF wrappers (``wrapper_type``): the model is wrapped (``models/crf.py``),
+both loaders ship the level-0 coords the CRF reads, the train step draws
+the wrapper's coin from its generator, and the CRF's parameters train at
+``wrapper_lr`` (their own parameter group, JAX's masked update scale).
+
 Instance datasets train with ``insseg.trainer.InssegTrainer``; this
-trainer refuses them. Not ported yet, each raising ``NotImplementedError``
-with its ROADMAP Queue 1 item: the CRF wrappers (item 6) and the classifier
-mode and its feature-resampling stage (item 7).
+trainer refuses them. It also refuses a model whose graph spec is not the
+loaders' (ResNet, the 4D ST variants): the JAX trainer builds its loaders
+with the Res16UNet spec whatever the model (ROADMAP Queue 3). Not ported
+yet, raising ``NotImplementedError`` with its ROADMAP Queue 1 item: the
+classifier mode and its feature-resampling stage (item 7), bf16 compute and
+remat (item 9).
 """
 
 from __future__ import annotations
@@ -93,14 +101,38 @@ def _not_ported(config: Config, mode: str) -> None:
         raise NotImplementedError(
             "the classifier mode and classifier_resample_features are not "
             "ported yet (ROADMAP Queue 1, item 7)")
-    if config.wrapper_type and config.wrapper_type.lower() not in ("", "none"):
-        raise NotImplementedError(
-            f"wrapper_type={config.wrapper_type!r}: the CRF wrappers are not "
-            "ported yet (ROADMAP Queue 1, item 6)")
     if config.compute_dtype != "float32" or config.remat:
         raise NotImplementedError(
             "the port computes in float32 without recomputation: "
-            "compute_dtype must be 'float32' and remat False")
+            "compute_dtype must be 'float32' and remat False "
+            "(ROADMAP Queue 1, item 9)")
+
+
+def wrapped(config: Config) -> bool:
+    return bool(config.wrapper_type
+                and config.wrapper_type.lower() not in ("", "none"))
+
+
+def check_graph_spec(model_cls, config: Config) -> None:
+    """Refuse a model whose kernel maps the loaders' graphs (the
+    Res16UNet spec) do not hold, naming it: JAX would fail at its first
+    step."""
+    from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+
+    spec_fn = getattr(model_cls, "graph_spec", None)
+    ks = config.conv1_kernel_size
+    if spec_fn is not None and spec_fn(ks) != res16unet_graph_spec(ks):
+        raise ValueError(
+            f"{config.model}: its graph spec is not the Res16UNet spec the "
+            "trainer's loaders build (ResNet and the 4D ST variants need "
+            "maps those graphs lack; ROADMAP Queue 3)")
+
+
+def in_head(name: str, prefixes) -> bool:
+    """Whether a dotted parameter name has a component starting with one
+    of ``prefixes`` (JAX labels a leaf by any key of its path, so a
+    wrapped model's ``base.final.*`` counts)."""
+    return any(part.startswith(tuple(prefixes)) for part in name.split("."))
 
 
 class Trainer:
@@ -118,15 +150,19 @@ class Trainer:
         os.makedirs(self.log_dir, exist_ok=True)
 
         # Data. Training batches ship compact (no device-side spatial
-        # coords); the prediction dumps read coords back
-        # (_dump_batch_predictions), so the val batches carry them when a
-        # dump can be asked for.
+        # coords) unless the CRF reads them; the prediction dumps read
+        # coords back (_dump_batch_predictions), so the val batches carry
+        # them when a dump can be asked for.
+        model_cls = load_model(config.model)
+        check_graph_spec(model_cls, config)
+        self.wrapped = wrapped(config)
         self.DatasetClass = load_dataset(config.dataset)
         self.train_loader = initialize_data_loader(
             self.DatasetClass, config, config.train_phase,
             num_workers=config.num_workers, shuffle=True, repeat=False,
             augment_data=config.train_augmentation, batch_size=config.batch_size,
-            limit_numpoints=config.train_limit_numpoints, ship_coords=False,
+            limit_numpoints=config.train_limit_numpoints,
+            ship_coords=self.wrapped,
             num_devices=self.world, rank=self.rank, device=self.device,
         )
         self.val_loader = initialize_data_loader(
@@ -134,7 +170,8 @@ class Trainer:
             num_workers=config.num_val_workers, shuffle=False, repeat=False,
             augment_data=False, batch_size=config.val_batch_size,
             limit_numpoints=config.train_limit_numpoints,
-            ship_coords=bool(config.visualize) or bool(config.save_prediction)
+            ship_coords=self.wrapped or bool(config.visualize)
+            or bool(config.save_prediction)
             or bool(config.test_original_pointcloud),
             num_devices=self.world, rank=self.rank, device=self.device,
         )
@@ -146,7 +183,6 @@ class Trainer:
         # trainer's _first_batch has no counterpart here). Every rank makes
         # the same ones; rank 0's (loaded weights included) are broadcast
         # all the same.
-        model_cls = load_model(config.model)
         self.model = model_cls(
             in_channels=getattr(self.dataset, "NUM_IN_CHANNEL", 3),
             out_channels=self.num_labels,
@@ -154,7 +190,17 @@ class Trainer:
             bn_momentum=config.bn_momentum,
             device=self.device,
             generator=torch.Generator().manual_seed(config.seed),
+            max_batch=max(config.batch_size, config.val_batch_size) + 1,
         )
+        if self.wrapped:
+            # reference main.py load_wrapper wiring, models/wrapper.py:20-30
+            from languagegroundedsemseg_torch.models import load_wrapper
+
+            self.model = load_wrapper(config.wrapper_type)(
+                self.model, self.num_labels,
+                spatial_sigma=float(config.crf_spatial_sigma),
+                chromatic_sigma=float(config.crf_chromatic_sigma),
+                iterations=config.meanfield_iterations, device=self.device)
         self._maybe_load_weights()
         convert_sync_batchnorm(self.model, self.group)
         broadcast_module(self.model, self.group)
@@ -200,16 +246,22 @@ class Trainer:
             exp_gamma=config.exp_gamma, exp_step_size=config.exp_step_size,
         )
         self.schedule = lambda s: epoch_sched(s // steps_per_epoch)  # noqa: E731
-        params = self.model.parameters()
+        named = list(self.model.named_parameters())
         if config.classifier_only:
             # Only the model-declared classifier head is updated (reference
             # set_classifier_mode, pl_BaselineTrainer.py:411 and
             # --classifier_only, scripts/fine_tune_classifier.sh); the rest
             # still takes gradients (grad_norm reads them all) and keeps
             # its BN running statistics moving, as in JAX.
-            prefixes = tuple(getattr(self.model, "classifier_trainable_prefixes", ("final",)))
-            params = [p for n, p in self.model.named_parameters()
-                      if n.startswith(prefixes)]
+            prefixes = getattr(self.model, "classifier_trainable_prefixes", ("final",))
+            named = [(n, p) for n, p in named if in_head(n, prefixes)]
+        params = [p for _, p in named]
+        if self.wrapped and config.lr > 0:
+            # the CRF's updates scaled to an effective lr of wrapper_lr
+            # (reference config wrapper_lr; JAX: a masked optax.scale)
+            crf = [p for n, p in named if n.startswith("crf.")]
+            params = [{"params": [p for n, p in named if not n.startswith("crf.")]},
+                      {"params": crf, "lr_factor": config.wrapper_lr / config.lr}]
         optimizer = initialize_optimizer(params, config, self.schedule)
         self.state = TrainState(self.model, optimizer)
 
@@ -287,7 +339,10 @@ class Trainer:
         """--weights: a reference (MinkowskiEngine) ``.pth`` / ``.tar`` is
         imported name for name (``torch_to_port_state_dict``); any other
         file is a port checkpoint (``cli/convert.py`` or the trainer's own
-        ``.ckpt``), whose model state dict loads as it is."""
+        ``.ckpt``), whose model state dict loads as it is. With
+        ``--weights_for_inner_model`` a reference file holds the bare
+        model while ``self.model`` is CRF-wrapped: it loads into the
+        wrapper's ``base`` (reference main.py:125-130)."""
         cfg = self.config
         if not cfg.weights or cfg.weights in ("None", ""):
             return
@@ -297,13 +352,16 @@ class Trainer:
                 torch_to_port_state_dict,
             )
 
+            target = (self.model.base if self.wrapped and cfg.weights_for_inner_model
+                      else self.model)
             sd = load_torch_state_dict(cfg.weights)
-            merged, skipped = torch_to_port_state_dict(sd, self.model.state_dict())
+            merged, skipped = torch_to_port_state_dict(sd, target.state_dict())
             print(f"loaded torch weights; skipped {len(skipped)} tensors")
         else:
+            target = self.model
             blob = torch.load(cfg.weights, map_location=self.device, weights_only=True)
             merged = blob["model"]
-        self.model.load_state_dict(merged)
+        target.load_state_dict(merged)
 
     def _eval_metrics_fn(self, state: TrainState, batch):
         """(hist, loss, pred, tp_hist, fp_hist) of one batch, on the

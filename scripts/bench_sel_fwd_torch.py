@@ -64,7 +64,7 @@ def sel_launches(model, graph) -> Counter:
             continue
         _, c_in, c_out = mod.kernel.shape
         shapes[(mod.map_name, c_out + (-c_out) % 8, "forward")] += 1
-        if mod is not model.conv0p1s1:
+        if mod is not model.input_conv():
             shapes[(mod.map_name, c_in + (-c_in) % 8, "dx")] += 1
     return shapes
 

@@ -3,7 +3,8 @@
 - The README quick-start through ``cli.main.main(argv, device="cpu")`` on
   tiny synthetic shapes: one epoch, then the test pass.
 - ``cli/convert.py`` on a reference-format state dict written here.
-- ``load_model`` returns every registered variant, and each variant's eval
+- The registry lists the JAX package's names; ``load_model`` returns each
+  BasicBlock Res16UNet variant, and each variant's eval
   forward matches the JAX model's on the f32 gather paths (the port's
   window routes declined, as tests/test_torch_data_loader.py does), with
   tests/test_torch_res16unet.py's tolerance: 1e-4 relative max error.
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from languagegroundedsemseg_tpu.data.batching import BatchBuilder as JaxBatchBuilder
+from languagegroundedsemseg_tpu.models import available_models as jax_available_models
 from languagegroundedsemseg_tpu.models import load_model as jax_load_model
 from languagegroundedsemseg_tpu.models.res16unet import res16unet_graph_spec as jax_graph_spec
 from languagegroundedsemseg_torch.cli import convert as cli_convert
@@ -110,7 +112,8 @@ def test_convert_writes_a_checkpoint_the_trainer_loads(tmp_path):
 
 
 def test_registry_lists_every_variant():
-    assert available_models() == sorted(VARIANTS)
+    assert set(VARIANTS) <= set(available_models())
+    assert available_models() == sorted(jax_available_models())
     for name in VARIANTS:
         cls = load_model(name)
         assert cls.__name__ == name
@@ -118,9 +121,10 @@ def test_registry_lists_every_variant():
         assert cls.PLANES == jcls.PLANES and cls.LAYERS == jcls.LAYERS
         assert cls.STRIP_FINAL_RELU == jcls.strip_final_relu
     with pytest.raises(KeyError):
-        load_model("Res16UNet50")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        load_wrapper("BilateralCRF")
+        load_model("Res16UNet42")
+    assert load_wrapper("BilateralCRF").__name__ == "BilateralCRF"
+    with pytest.raises(KeyError):
+        load_wrapper("GaussianCRF")
 
 
 @pytest.fixture(scope="module")

@@ -117,14 +117,17 @@ def test_select_mode_equals_jax(kw):
     (dict(dataset="SyntheticInstanceDataset", num_devices=2), RuntimeError, "torchrun"),
     (dict(model="ClassifierNet"), NotImplementedError, "item 7"),
     (dict(classifier_resample_features=True), NotImplementedError, "item 7"),
-    (dict(wrapper_type="BilateralCRF"), NotImplementedError, "item 6"),
+    (dict(model="ResNet14"), ValueError, "graph spec"),
     (dict(num_devices=2), RuntimeError, "torchrun"),
-], ids=["kw0-item 5", "kw1-item 7", "kw2-item 7", "kw3-item 6", "kw4-item 5"])
+    (dict(remat=True), NotImplementedError, "item 9"),
+], ids=["kw0-item 5", "kw1-item 7", "kw2-item 7", "kw3-graph spec", "kw4-item 5",
+        "kw5-item 9"])
 def test_unported_modes_raise(tmp_path, kw, exc, match):
     """Each mode's trainer as cli.main picks it: instance datasets go to
     InssegTrainer, the rest to Trainer. The unported modes raise naming
-    their ROADMAP item; more than one device without a process group
-    (one process per rank) raises naming torchrun."""
+    their ROADMAP item; a model whose graph spec the loaders do not build
+    raises; more than one device without a process group (one process per
+    rank) raises naming torchrun."""
     cfg = Config(**_kw(log_dir=str(tmp_path / "run"), **kw))
     with pytest.raises(exc, match=match):
         if select_mode(cfg) == "insseg":
