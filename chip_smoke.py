@@ -39,8 +39,20 @@ the same way, the CRF's coins and compatibility recorded; and one eval
 forward and train step card vs CPU for each family (Res16UNet50,
 ResUNet14, MinkUNetHyper14INBN, Res16UNet34Dv3, Res16UNet34CR_Proj, an SE
 Res16UNet, ResNet14, STRes16UNet14A on a 4-D cloud). The kernels phase
-also holds sel_fwd, dw and csum at the widths Res16UNet50 adds. Each
-phase prints one JSON line; the last line is
+also holds sel_fwd, dw and csum at the widths Res16UNet50 adds. Then the
+classifier stage: ``cli.main.main`` with ``--model ClassifierNet
+--classifier_resample_features true`` (no kernel runs), then
+``Trainer(mode="classifier")`` on Res16UNet34C (the features are its eval
+forwards over both loaders), each writing the classifier's checkpoint and
+history; the pooled features and the classifier card vs CPU. Then the
+paired SimSiam step: ``build_paired_batch`` over the trainer's dataset,
+SGD steps of Res16UNet34DPaired at full width, one step card vs CPU. Then
+bf16 compute and per-block recomputation: ``cli.main.main`` with
+``--compute_dtype bfloat16`` (Res16UNet34C), ``--model Res16UNet50 --remat
+true`` and both, launches counted with the recompute, peak memory beside
+Res16UNet50's without remat; the insseg CLI in bf16; each configuration's
+logits and step card vs CPU. Each phase prints one JSON line; the last
+line is
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line. It needs a CUDA device and imports
 nothing of JAX.
@@ -60,6 +72,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -247,8 +261,12 @@ def expected_launches(model, graph, train: bool = False) -> dict:
     that takes the input features, whose dX is never asked for, and one
     dw); per down conv on a windowed map, one csum (train: another for the
     dX of its up conv, which runs the child-sum direction of the same
-    map). A wrapper is seen through to its ``base``; a down map's input
-    level is read from the model's graph spec."""
+    map). With ``remat`` on, a train step runs each checkpointed block's
+    forward again in the backward: its convs' forward launches count
+    twice. A wrapper is seen through to its ``base``, a paired model to
+    its ``backbone`` (one view: ``graph``'s); a down map's input level is
+    read from the model's graph spec. A model without sparse convs
+    (ClassifierNet) launches nothing."""
     from languagegroundedsemseg_torch.models.layers import SparseConv
     from languagegroundedsemseg_torch.ops.onehot_conv import _cs_window
     from languagegroundedsemseg_torch.sparse.types import (
@@ -256,25 +274,31 @@ def expected_launches(model, graph, train: bool = False) -> dict:
         MaskedShiftMap,
     )
 
-    while hasattr(model, "base"):
-        model = model.base
+    while hasattr(model, "base") or hasattr(model, "backbone"):
+        model = getattr(model, "base", None) or model.backbone
+    want = {"sel_fwd": 0, "csum": 0, "dw": 0}
+    if not hasattr(model, "input_conv"):
+        return want
     first = model.input_conv()
     spec = type(model).graph_spec()
-    want = {"sel_fwd": 0, "csum": 0, "dw": 0}
+    recomputed = set()
+    if train and getattr(model, "remat", False):
+        recomputed = {id(m) for blk in model.stage_blocks() for m in blk.modules()}
     for mod in model.modules():
         if not isinstance(mod, SparseConv) or mod.map_name is None:
             continue
+        again = id(mod) in recomputed
         gm = graph.gmaps.get(mod.map_name)
         if isinstance(gm, MaskedShiftMap):
             if ms_windowed(gm):
-                want["sel_fwd"] += 1
+                want["sel_fwd"] += 1 + again
                 if train:
                     want["dw"] += 1
                     want["sel_fwd"] += mod is not first
         elif isinstance(gm, ChildSumMap):
             cap_in = graph.levels[spec.maps[mod.map_name].level_in].capacity
             if _cs_window(gm, cap_in)[0]:
-                want["csum"] += 1
+                want["csum"] += 1 + again
         elif train and gm is None:
             cgm = graph.gmaps.get(graph.maps[mod.map_name].companion)
             if (isinstance(cgm, ChildSumMap)
@@ -1064,9 +1088,10 @@ def parity_batch(device, seed: int = 1):
     return builder.build([voxelize_scene(rng, PARITY_POINTS)], device=device)
 
 
-def scaled_model(device, seed: int = 1, model_cls=None):
-    """Res16UNet34C (200 classes; or ``model_cls``, any model of the zoo)
-    with well-conditioned random weights: kernels and linear weights
+def scaled_model(device, seed: int = 1, model_cls=None, **kwargs):
+    """Res16UNet34C (200 classes; or ``model_cls``, any model of the zoo,
+    built with ``kwargs`` too) with well-conditioned random weights:
+    kernels and linear weights
     N(0, 0.36 / fan_in), norm scales and running variances in [0.6, 1.4],
     biases and running means 0.1 * N(0, 1). Activations stay
     O(1) through the depth. (The bench's weights make the net chaotic —
@@ -1075,7 +1100,7 @@ def scaled_model(device, seed: int = 1, model_cls=None):
     port.)"""
     from languagegroundedsemseg_torch.models.res16unet import Res16UNet34C
 
-    model = (model_cls or Res16UNet34C)(out_channels=200, device=device)
+    model = (model_cls or Res16UNet34C)(out_channels=200, device=device, **kwargs)
     rng = np.random.default_rng(seed)
     sd = {}
     for name, t in model.state_dict().items():
@@ -1249,6 +1274,8 @@ def _one_train_step(model, device, feats_noise: float = 0.0):
 
 
 def _rel_l2(got, want) -> float:
+    """Relative L2 gap, in f32 (a bf16 difference would round)."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
@@ -2130,17 +2157,37 @@ def phase_insseg_path() -> dict:
     finite; both best checkpoints load with ``weights_only=True``. Then
     one insseg train step card vs CPU, and the device cluster ops against
     the host."""
-    from languagegroundedsemseg_torch.cli.main import main as cli_main
     from languagegroundedsemseg_torch.config import Config
+
+    synthetic = insseg_dataset()
+    rec = {"phase": "insseg_path", "argv": INSSEG_ARGV,
+           "dataset": {"scenes": INSSEG_SCENES, "points_per_scene": INSSEG_POINTS,
+                       "classes": 200},
+           **_insseg_cli_run(INSSEG_ARGV, INSSEG_STEPS, synthetic)}
+    rec["card_vs_cpu"] = insseg_card_vs_cpu()
+    rec["cluster_ops"] = cluster_ops_on_card(
+        synthetic(Config(ignore_label=255), phase="val", augment_data=False))
+    emit(rec)
+    return rec
+
+
+def _insseg_cli_run(argv: list, steps: int, synthetic=None) -> dict:
+    """``cli.main.main(argv)`` for ``steps`` steps on the instance dataset
+    (``synthetic``, insseg_dataset() when None, patched in as the
+    Scannet200 instance dataset) with the recording InssegTrainer: the
+    launches of every train step and eval forward checked, the losses
+    finite, the two validations (the fit's at its last step and the
+    CLI's) over every val scene, both best checkpoints written."""
+    from languagegroundedsemseg_torch.cli.main import main as cli_main
     from languagegroundedsemseg_torch.insseg import dataset as insseg_dataset_mod
     from languagegroundedsemseg_torch.insseg import trainer as insseg_trainer
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
 
     recording = _recording_insseg_trainer()
-    synthetic = insseg_dataset()
+    synthetic = synthetic or insseg_dataset()
     with tempfile.TemporaryDirectory(prefix="lgs_insseg_path_") as tmp:
-        argv = INSSEG_ARGV + ["--max_iter", str(INSSEG_STEPS), "--log_dir", tmp]
+        argv = argv + ["--max_iter", str(steps), "--log_dir", tmp]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         oc.reset_launch_counts()
@@ -2172,7 +2219,7 @@ def phase_insseg_path() -> dict:
                              f"({tr.n_train} train steps, {tr.n_eval} eval forwards)")
     if min(launches.values()) == 0 or any(ablation.values()):
         raise AssertionError(f"insseg: launches {launches}, ablation {ablation}")
-    if tr.state.step != INSSEG_STEPS or tr.n_train != INSSEG_STEPS:
+    if tr.state.step != steps or tr.n_train != steps:
         raise AssertionError(f"insseg: step {tr.state.step}, {tr.n_train} train steps")
     if not all(np.isfinite(v).all() for v in tr.losses.values()):
         raise AssertionError(f"insseg: losses {tr.losses}")
@@ -2183,32 +2230,25 @@ def phase_insseg_path() -> dict:
         raise AssertionError(f"insseg: metrics {metrics}")
 
     after_first = tr.step_s[1:]
-    rec = {"phase": "insseg_path", "argv": INSSEG_ARGV,
-           "dataset": {"scenes": INSSEG_SCENES, "points_per_scene": INSSEG_POINTS,
-                       "classes": 200},
-           "steps": tr.n_train, "eval_forwards": tr.n_eval, "main_s": main_s,
-           "fit_s": tr.fit_s,
-           "scenes_per_s": tr.config.batch_size * len(after_first) / sum(after_first),
-           "step_s": tr.step_s, "validations": tr.val_records,
-           "validate_s": tr.val_records[-1]["s"],
-           "validate_host_share": tr.val_records[-1]["host_share"],
-           "fit_validation_equals_cli": all(
-               np.isclose(v, metrics[k], rtol=0, atol=0, equal_nan=True)
-               for k, v in tr.val_records[0]["metrics"].items()),
-           "max_memory_allocated": peak,
-           "first_losses": {k: v[0] for k, v in tr.losses.items()},
-           "last_losses": {k: v[-1] for k, v in tr.losses.items()},
-           "metrics": metrics, "best_checkpoints": best,
-           "loader_counters": tr.train_loader.counters.snapshot(),
-           "launches": launches, "expected_launches": tr.want,
-           "expected_per_train_step": tr.step_want,
-           "expected_per_eval_forward": tr.eval_want,
-           "ablation_launches": ablation}
-    rec["card_vs_cpu"] = insseg_card_vs_cpu()
-    rec["cluster_ops"] = cluster_ops_on_card(
-        synthetic(Config(ignore_label=255), phase="val", augment_data=False))
-    emit(rec)
-    return rec
+    return {"dtype": str(tr.model.dtype),
+            "steps": tr.n_train, "eval_forwards": tr.n_eval, "main_s": main_s,
+            "fit_s": tr.fit_s,
+            "scenes_per_s": tr.config.batch_size * len(after_first) / sum(after_first),
+            "step_s": tr.step_s, "validations": tr.val_records,
+            "validate_s": tr.val_records[-1]["s"],
+            "validate_host_share": tr.val_records[-1]["host_share"],
+            "fit_validation_equals_cli": all(
+                np.isclose(v, metrics[k], rtol=0, atol=0, equal_nan=True)
+                for k, v in tr.val_records[0]["metrics"].items()),
+            "max_memory_allocated": peak,
+            "first_losses": {k: v[0] for k, v in tr.losses.items()},
+            "last_losses": {k: v[-1] for k, v in tr.losses.items()},
+            "metrics": metrics, "best_checkpoints": best,
+            "loader_counters": tr.train_loader.counters.snapshot(),
+            "launches": launches, "expected_launches": tr.want,
+            "expected_per_train_step": tr.step_want,
+            "expected_per_eval_forward": tr.eval_want,
+            "ablation_launches": ablation}
 
 
 # ---- phase ddp_path: data parallelism ------------------------------------
@@ -2760,6 +2800,503 @@ def phase_zoo_path() -> dict:
 
 
 
+# ---- phase classifier_path: the classifier stage ---------------------------
+CLASSIFIER_EPOCHS = 2
+CLASSIFIER_ARGV = ["--classifier_resample_features", "true",
+                   "--max_epoch", str(CLASSIFIER_EPOCHS)]
+# the classifier's history card vs CPU on the same features: the same f32
+# SGD updates, sums in another order, over the epochs
+CLASSIFIER_RTOL = 1e-4
+# val accuracy card vs CPU: an argmax tie among near-equal logits can flip
+# a row
+CLASSIFIER_ACC_ATOL = 1e-3
+
+
+def _timed_extraction(log: list):
+    """A patch of ``extract_features`` that records each call's seconds
+    (synced), pooled rows and feature width, changing nothing it does."""
+    from languagegroundedsemseg_torch.data import feature_dataset as fd
+
+    real = fd.extract_features
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, labels = real(*args, **kwargs)
+        log.append({"s": time.perf_counter() - t0, "rows": int(len(labels)),
+                    "width": int(feats.shape[1])})
+        return feats, labels
+
+    return mock.patch.object(fd, "extract_features", timed)
+
+
+def _classifier_files(log_dir: str, epochs: int, name: str) -> dict:
+    """The stage's ``classifier_features.ckpt`` (tensors only) and its
+    history: one record per epoch, finite loss, accuracy in [0, 1]."""
+    path = os.path.join(log_dir, "classifier_features.ckpt")
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    with open(path + ".json") as f:
+        history = json.load(f)["history"]
+    if [r["epoch"] for r in history] != list(range(epochs)) or not all(
+            np.isfinite(r["loss"]) and 0.0 <= r["val_acc"] <= 1.0 for r in history):
+        raise AssertionError(f"{name}: history {history}")
+    return {"history": history,
+            "tensors": {k: list(v.shape) for k, v in blob.items()}}
+
+
+def classifier_card_vs_cpu() -> dict:
+    """The stage's two parts card vs CPU on the parity batch: the pooled
+    features of Res16UNet34C's eval forward (conditioned weights), and the
+    classifier trained on the card's features on each device (two epochs,
+    seed 0)."""
+    from languagegroundedsemseg_torch.data.feature_dataset import (
+        ResampledFeatureDataset,
+        extract_features,
+    )
+    from languagegroundedsemseg_torch.train.classifier import (
+        train_classifier_on_features,
+    )
+    from languagegroundedsemseg_torch.train.step import make_eval_step
+
+    model = scaled_model("cuda")
+    pooled = {}
+    for dev, m in (("cuda", model), ("cpu", copy.deepcopy(model).to("cpu"))):
+        pooled[dev] = extract_features(make_eval_step(m, device=dev),
+                                       [parity_batch(dev)])
+    (fc, lc), (fp, lp) = pooled["cuda"], pooled["cpu"]
+    if not np.array_equal(lc, lp):
+        raise AssertionError("classifier_path: pooled labels differ card vs CPU")
+    feat_gap = float(np.linalg.norm(fc - fp) / np.linalg.norm(fp))
+    hist = {}
+    for dev in ("cuda", "cpu"):
+        ds = ResampledFeatureDataset(fc, lc, num_classes=200, seed=0)
+        val = ResampledFeatureDataset(fc, lc, num_classes=200, seed=1)
+        hist[dev] = train_classifier_on_features(
+            ds, 200, epochs=CLASSIFIER_EPOCHS, seed=0, val=val, device=dev)[1]
+    loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist["cuda"], hist["cpu"]))
+    acc_gap = max(abs(a["val_acc"] - b["val_acc"])
+                  for a, b in zip(hist["cuda"], hist["cpu"]))
+    rec = {"pooled_rows": int(len(lc)), "features_rel_l2": feat_gap,
+           "history_card": hist["cuda"], "history_cpu": hist["cpu"],
+           "loss_rel_gap": loss_gap, "val_acc_gap": acc_gap,
+           "limits": {"features": PARITY_RTOL, "loss": CLASSIFIER_RTOL,
+                      "val_acc": CLASSIFIER_ACC_ATOL}}
+    if not (feat_gap <= PARITY_RTOL and loss_gap <= CLASSIFIER_RTOL
+            and acc_gap <= CLASSIFIER_ACC_ATOL):
+        raise AssertionError(f"classifier_path card vs CPU: {rec}")
+    return rec
+
+
+def phase_classifier_path() -> dict:
+    """The classifier stage on the card. (a) ``cli.main`` with
+    trainer_path (a)'s flags, ``--model ClassifierNet
+    --classifier_resample_features true``: ClassifierNet is the model, so
+    the pooled features are the voxel features and nothing launches a
+    kernel; the stage writes its checkpoint and history, then the test
+    pass runs. (b) ``Trainer(cfg, mode="classifier")`` on Res16UNet34C at
+    full width with the same flags: the features are the backbone's eval
+    forwards over both loaders (launches = Σ ``expected_launches`` of
+    those forwards), then CLASSIFIER_EPOCHS epochs of the classifier.
+    Then card vs CPU (``classifier_card_vs_cpu``)."""
+    from languagegroundedsemseg_torch.cli.main import main as cli_main
+    from languagegroundedsemseg_torch.config import get_config
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="lgs_classifier_path_") as tmp:
+        for name, model in (("classifier_net", "ClassifierNet"),
+                            ("res16unet34c_backbone", "Res16UNet34C")):
+            log_dir = os.path.join(tmp, name)
+            argv = LEARNING_CURVE_ARGV + CLASSIFIER_ARGV + [
+                "--model", model, "--log_dir", log_dir]
+            recording, extraction = _recording_trainer(), []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            oc.reset_launch_counts()
+            oa.reset_launch_counts()
+            t1 = time.perf_counter()
+            with _timed_extraction(extraction), \
+                    mock.patch.object(trainer_mod, "Trainer", recording):
+                if model == "ClassifierNet":
+                    test_metrics = cli_main(argv)
+                else:
+                    tr = recording(get_config(argv), mode="classifier")
+                    tr.fit()
+                    tr.close()
+                    test_metrics = None
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t1
+            launches, ablation = dict(oc.launch_counts), dict(oa.launch_counts)
+            (tr,) = recording.instances
+            # Σ expected_launches over the extraction's (and the test
+            # pass's) eval forwards: no dw, no ablation kernel
+            if launches != tr.want or launches["dw"] or any(ablation.values()):
+                raise AssertionError(f"{name}: launches {launches}, expected "
+                                     f"{tr.want}, ablation {ablation}")
+            if tr.mode != "classifier" or tr.state.step != 0:
+                raise AssertionError(f"{name}: mode {tr.mode}, step {tr.state.step}")
+            if model == "ClassifierNet" and any(launches.values()):
+                raise AssertionError(f"{name}: ClassifierNet launched {launches}")
+            if model != "ClassifierNet" and not (launches["sel_fwd"] and launches["csum"]):
+                raise AssertionError(f"{name}: the backbone's kernels never ran {launches}")
+            files = _classifier_files(log_dir, CLASSIFIER_EPOCHS, name)
+            if test_metrics is not None and not 0.0 <= test_metrics["val_miou"] <= 1.0:
+                raise AssertionError(f"{name}: test pass {test_metrics}")
+            runs.append({"run": name, "model": model, "classes": tr.num_labels,
+                         "run_s": run_s,
+                         "extraction": extraction,
+                         "extraction_s": sum(e["s"] for e in extraction),
+                         "pool_rows": {"train": extraction[0]["rows"],
+                                       "val": extraction[1]["rows"]},
+                         "feature_width": extraction[0]["width"],
+                         "eval_forwards": tr.n_eval,
+                         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                         **files, "launches": launches, "expected_launches": tr.want,
+                         "ablation_launches": ablation,
+                         **({"test_metrics": {k: test_metrics[k] for k in
+                                              ("val_miou", "val_loss")}}
+                            if test_metrics is not None else {})})
+    # ClassifierNet pools the 3 input channels, Res16UNet34C its 96-wide
+    # last decoder block
+    widths = [r["feature_width"] for r in runs]
+    if widths != [3, 96] or [r["tensors"]["classifier.weight"] for r in runs] != [
+            [r["classes"], w] for r, w in zip(runs, widths)]:
+        raise AssertionError(f"classifier_path: widths {widths}, {runs}")
+    t2 = time.perf_counter()
+    rec = {"phase": "classifier_path", "argv": LEARNING_CURVE_ARGV + CLASSIFIER_ARGV,
+           "runs": runs, "card_vs_cpu": classifier_card_vs_cpu(),
+           "card_vs_cpu_s": time.perf_counter() - t2,
+           "launches": {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]},
+           "ablation_launches": {k: sum(r["ablation_launches"][k] for r in runs)
+                                 for k in runs[0]["ablation_launches"]},
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+# ---- phase simsiam_path: the paired SimSiam step ---------------------------
+# trainer_path's dataset and scene size, 4-scene paired batches: two batches
+# (scenes 0-3 and 4-7), stepped alternately
+SIMSIAM_STEPS = 8
+SIMSIAM_LR = 0.05
+SIMSIAM_BATCHES = ((0, 1, 2, 3), (4, 5, 6, 7))
+
+
+def _paired_setup(points=None, cap=None):
+    """(config, dataset, builder) of trainer_path's flags; the dataset at
+    ``points`` points a scene and the builder at capacity ``cap`` when
+    given."""
+    from languagegroundedsemseg_torch.config import get_config
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.data.loader import load_dataset
+    from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+
+    cfg = get_config(LEARNING_CURVE_ARGV)
+    cls = load_dataset(cfg.dataset)
+    if points:
+        cls = type(cls.__name__, (cls,), {"POINTS_PER_SCENE": points})
+    ds = cls(cfg, phase="train", augment_data=True)
+    builder = BatchBuilder(spec=res16unet_graph_spec(), ignore_index=cfg.ignore_label,
+                           limit_numpoints=cfg.train_limit_numpoints,
+                           fixed_capacity=cap or cfg.fixed_capacity or None,
+                           level_ratios=cfg.level_capacity_ratios)
+    return cfg, ds, builder
+
+
+def _paired_want(model, b1, b2) -> dict:
+    """One SimSiam step's launches: a train step's on each view's graph."""
+    w1 = expected_launches(model, b1.graph, train=True)
+    w2 = expected_launches(model, b2.graph, train=True)
+    return {k: w1[k] + w2[k] for k in w1}
+
+
+def simsiam_card_vs_cpu() -> dict:
+    """One SimSiam step card vs CPU: Res16UNet34DPaired with one block a
+    stage (the CPU half of the full depth takes too long), conditioned
+    weights, on a paired batch of one PARITY_POINTS scene at PARITY_CAP.
+    The loss and its terms to TRAIN_LOSS_RTOL, the BN statistics (moved
+    once per view) to TRAIN_STATE_RTOL; the card's launches equal
+    ``_paired_want``."""
+    from languagegroundedsemseg_torch.models.clip_models import Res16UNet34DPaired
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.train.simsiam import (
+        build_paired_batch,
+        make_simsiam_train_step,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+
+    cfg, ds, builder = _paired_setup(PARITY_POINTS, PARITY_CAP)
+    cls = type("Res16UNet34DPaired", (Res16UNet34DPaired,), {"LAYERS": (1,) * 8})
+    base = scaled_model("cuda", model_cls=cls)
+    anchors = ds.loaded_text_features[:, 0, :]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b1, b2, c1, c2 = build_paired_batch(builder, ds, [0], np.random.default_rng(0),
+                                            device=dev)
+        model = copy.deepcopy(base) if dev == "cuda" else copy.deepcopy(base).to("cpu")
+        opt = sgd_torch(model.parameters(), SIMSIAM_LR)
+        step = make_simsiam_train_step(model, opt, cfg, anchors,
+                                       ds.frequency_organized_cats, device=dev)
+        want = _paired_want(model, b1, b2)
+        oc.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, m = step(TrainState(model, opt), b1, b2, c1, c2,
+                    torch.Generator(device=dev).manual_seed(0))
+        out[dev] = {"metrics": {k: float(v) for k, v in m.items()},
+                    "stats": torch.cat([t.detach().cpu().ravel() for n, t in
+                                        model.state_dict().items() if "running" in n]),
+                    "launches": dict(oc.launch_counts), "want": want,
+                    "s": time.perf_counter() - t0}
+    card, cpu = out["cuda"], out["cpu"]
+    gap = {k: abs(card["metrics"][k] - v) / abs(v) for k, v in cpu["metrics"].items()}
+    gap["stats"] = _rel_l2(card["stats"], cpu["stats"])
+    rec = {"pairs_rows": [int(b1.graph.levels[0].mask().sum()),
+                          int(b2.graph.levels[0].mask().sum())],
+           "metrics": card["metrics"], "card_vs_cpu": gap,
+           "limits": {"metrics": TRAIN_LOSS_RTOL, "stats": TRAIN_STATE_RTOL},
+           "launches": card["launches"], "expected_launches": card["want"],
+           "card_s": card["s"], "cpu_s": cpu["s"]}
+    if (card["launches"] != card["want"] or gap["stats"] > TRAIN_STATE_RTOL
+            or max(v for k, v in gap.items() if k != "stats") > TRAIN_LOSS_RTOL):
+        raise AssertionError(f"simsiam_path card vs CPU: {rec}")
+    return rec
+
+
+def phase_simsiam_path() -> dict:
+    """The paired SimSiam step on the card: ``build_paired_batch`` over
+    trainer_path's dataset (two augmented views a scene, their
+    correspondences), 4-scene batches, then SIMSIAM_STEPS SGD steps of
+    ``make_simsiam_train_step`` on Res16UNet34DPaired at full width (the
+    backbone's own seeded init, the dataset's 512-d anchors). Launches
+    equal Σ over the steps of both views' train-step launches; losses
+    finite; the loss of each batch falls between its first and last step.
+    Then one step card vs CPU (``simsiam_card_vs_cpu``)."""
+    from languagegroundedsemseg_torch.models.clip_models import Res16UNet34DPaired
+    from languagegroundedsemseg_torch.ops import onehot_ablation as oa
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.train.simsiam import (
+        build_paired_batch,
+        make_simsiam_train_step,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+
+    t0 = time.perf_counter()
+    cfg, ds, builder = _paired_setup()
+    rng = np.random.default_rng(cfg.seed)
+    pairs, build_s, corr_ok = [], [], []
+    for idx in SIMSIAM_BATCHES:
+        t1 = time.perf_counter()
+        b1, b2, c1, c2 = build_paired_batch(builder, ds, list(idx), rng)
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t1)
+        valid = b1.graph.levels[0].mask().cpu().numpy() > 0
+        corr_ok.append(float(((c1 >= 0) & valid).sum() / valid.sum()))
+        pairs.append((b1, b2, c1, c2))
+    model = Res16UNet34DPaired(in_channels=3, out_channels=200, device="cuda",
+                               generator=torch.Generator().manual_seed(cfg.seed),
+                               max_batch=len(SIMSIAM_BATCHES[0]) + 1)
+    opt = sgd_torch(model.parameters(), SIMSIAM_LR)
+    step = make_simsiam_train_step(model, opt, cfg, ds.loaded_text_features[:, 0, :],
+                                   ds.frequency_organized_cats)
+    state = TrainState(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+    want = {"sel_fwd": 0, "csum": 0, "dw": 0}
+    for i in range(SIMSIAM_STEPS):
+        for k, v in _paired_want(model, *pairs[i % 2][:2]).items():
+            want[k] += v
+    metrics, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    oc.reset_launch_counts()
+    oa.reset_launch_counts()
+    for i in range(SIMSIAM_STEPS):
+        t1 = time.perf_counter()
+        state, m = step(state, *pairs[i % 2], gen)
+        metrics.append({k: float(v) for k, v in m.items()})  # syncs
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches, ablation = dict(oc.launch_counts), dict(oa.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    anchor = [r["anchor_loss1"] + r["anchor_loss2"] for r in metrics]
+    rec = {"phase": "simsiam_path", "argv": LEARNING_CURVE_ARGV,
+           "batches": [list(b) for b in SIMSIAM_BATCHES],
+           "rows_l0": [[int(p[0].graph.levels[0].mask().sum()),
+                        int(p[1].graph.levels[0].mask().sum())] for p in pairs],
+           "paired_build_s": build_s, "corr_valid_share": corr_ok,
+           "steps": state.step, "lr": SIMSIAM_LR, "step_ms": step_ms,
+           "step_ms_after_first": statistics.median(step_ms[1:]),
+           "max_memory_allocated": peak, "metrics": metrics,
+           "anchor_losses": anchor,
+           "launches": launches, "expected_launches": want,
+           "ablation_launches": ablation}
+    if launches != want or min(launches.values()) == 0 or any(ablation.values()):
+        raise AssertionError(f"simsiam_path: {rec}")
+    if not np.isfinite([v for r in metrics for v in r.values()]).all():
+        raise AssertionError(f"simsiam_path: metrics {metrics}")
+    for b in range(2):
+        if not anchor[-2 + b] < anchor[b]:
+            raise AssertionError(f"simsiam_path: batch {b}'s anchor loss did not "
+                                 f"fall: {anchor}")
+    t1 = time.perf_counter()
+    rec["card_vs_cpu"] = simsiam_card_vs_cpu()
+    rec["card_vs_cpu_s"] = time.perf_counter() - t1
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    return rec
+
+
+# ---- phase precision_path: bf16 compute and per-block recomputation ------
+PRECISION_EPOCHS = 2
+PRECISION_RUNS = (
+    ("bf16_res16unet34c", ["--compute_dtype", "bfloat16"]),
+    ("remat_res16unet50", ["--model", "Res16UNet50", "--remat", "true"]),
+    ("remat_bf16_res16unet50", ["--model", "Res16UNet50", "--remat", "true",
+                                "--compute_dtype", "bfloat16"]),
+)
+PRECISION_INSSEG_STEPS = 4
+# card bf16 vs CPU bf16 (the parity batch): the same casts, but cuBLAS's and
+# the CPU's bf16 GEMMs may round a result's last bit differently (one flip
+# is 2^-8 relative), spread through the layers (tests/test_torch_precision.py
+# holds the CPU against JAX to the same limit)
+BF16_CARD_RTOL = 3e-2
+
+
+def _precision_extra(tr) -> dict:
+    """A step alone, the model's dtype and remat, and the launches a
+    train step on the last batch adds for the recompute."""
+    model = tr.model
+    g = tr.last_batch.graph
+    with_remat = expected_launches(model, g, train=True)
+    remat, model.remat = model.remat, False
+    try:
+        without = expected_launches(model, g, train=True)
+    finally:
+        model.remat = remat
+    return {**_step_alone(tr), "dtype": str(model.dtype), "remat": model.remat,
+            "recompute_launches_per_step": {k: with_remat[k] - without[k]
+                                            for k in with_remat}}
+
+
+def precision_card_vs_cpu() -> list:
+    """Per configuration, card vs CPU on the parity batch (conditioned
+    weights): the eval logits and one SGD step's loss and BN statistics;
+    the card step's launches equal ``expected_launches`` (with the
+    recompute); with remat, the card's step against its own step without
+    (the same forward, so the same loss and statistics up to the card's
+    atomics). bf16 is held to BF16_CARD_RTOL, f32 to the train-parity
+    limits. Res16UNet50 runs with one block a stage (the CPU half of the
+    full depth takes too long)."""
+    from languagegroundedsemseg_torch.models.res16unet import Res16UNet34C, Res16UNet50
+    from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.train.step import make_eval_step
+
+    narrow50 = type("Res16UNet50", (Res16UNet50,), {"LAYERS": (1,) * 8})
+    out = []
+    for name, cls, dtype, remat in (
+            ("bf16_res16unet34c", Res16UNet34C, torch.bfloat16, False),
+            ("remat_res16unet50", narrow50, torch.float32, True),
+            ("remat_bf16_res16unet50", narrow50, torch.bfloat16, True)):
+        base = scaled_model("cuda", model_cls=cls, dtype=dtype, remat=remat)
+        batch = parity_batch("cuda")
+        valid = batch.graph.levels[0].mask().cpu() > 0
+        t0 = time.perf_counter()
+        logits = make_eval_step(copy.deepcopy(base))(batch)[0].cpu()[valid]
+        want = expected_launches(base, batch.graph, train=True)
+        oc.reset_launch_counts()
+        card = _one_train_step(copy.deepcopy(base), "cuda")
+        launches = dict(oc.launch_counts)
+        card_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        cpu_model = copy.deepcopy(base).to("cpu")
+        cpu_logits = make_eval_step(cpu_model, device="cpu")(parity_batch("cpu"))[0][valid]
+        cpu = _one_train_step(copy.deepcopy(base).to("cpu"), "cpu")
+        cpu_s = time.perf_counter() - t1
+        rtol = BF16_CARD_RTOL if dtype == torch.bfloat16 else None
+        gap = {"logits": _rel_l2(logits, cpu_logits),
+               "loss": abs(card[0] - cpu[0]) / abs(cpu[0]),
+               "stats": _step_gap(card, cpu)["stats"]}
+        limit = {"logits": rtol or PARITY_RTOL, "loss": rtol or TRAIN_LOSS_RTOL,
+                 "stats": rtol or TRAIN_STATE_RTOL}
+        rec = {"config": name, "dtype": str(dtype), "remat": remat,
+               "narrowed": cls is narrow50, "logits_dtype": str(logits.dtype),
+               "loss": card[0], "card_vs_cpu": gap, "limits": limit,
+               "launches": launches, "expected_launches": want,
+               "card_s": card_s, "cpu_s": cpu_s}
+        if remat:
+            plain = copy.deepcopy(base)
+            plain.remat = False
+            alone = _one_train_step(plain, "cuda")
+            rec["remat_vs_plain_on_card"] = {
+                "loss": abs(card[0] - alone[0]) / abs(alone[0]),
+                "stats": _step_gap(card, alone)["stats"]}
+            if not (rec["remat_vs_plain_on_card"]["loss"] <= TRAIN_LOSS_RTOL
+                    and rec["remat_vs_plain_on_card"]["stats"] <= TRAIN_STATE_RTOL):
+                raise AssertionError(f"precision_path (c) {name}: {rec}")
+        out.append(rec)
+        if launches != want or not all(gap[k] <= limit[k] for k in limit):
+            raise AssertionError(f"precision_path (c) {name}: {rec}")
+        if dtype == torch.bfloat16 and logits.dtype != torch.bfloat16:
+            raise AssertionError(f"precision_path (c) {name}: logits {logits.dtype}")
+    return out
+
+
+def phase_precision_path(zoo: Optional[dict] = None) -> dict:
+    """bf16 compute and per-block recomputation on the card: (a)
+    ``cli.main`` with trainer_path (a)'s flags three times: ``--compute_dtype
+    bfloat16`` on Res16UNet34C, ``--model Res16UNet50 --remat true`` (f32)
+    and both; launches (the recompute included) equal Σ
+    ``expected_launches``, the loss falls, peak memory beside zoo_path
+    (a)'s Res16UNet50 without remat (``zoo``, that phase's record, when
+    it ran). (b) insseg_path's CLI with
+    ``--compute_dtype bfloat16`` for PRECISION_INSSEG_STEPS steps and its
+    validation. (c) card vs CPU (``precision_card_vs_cpu``)."""
+    t0 = time.perf_counter()
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="lgs_precision_path_") as tmp:
+        for name, flags in PRECISION_RUNS:
+            r = _trainer_run(name, LEARNING_CURVE_ARGV + flags + [
+                "--max_epoch", str(PRECISION_EPOCHS), "--log_dir", os.path.join(tmp, name)],
+                PRECISION_EPOCHS, ("val_miou",), extra=_precision_extra)
+            runs.append(r)
+            if not r["last_loss"] < r["first_loss"]:
+                raise AssertionError(f"precision_path {name}: the loss did not fall "
+                                     f"{r['losses']}")
+    if ([r["dtype"] for r in runs] != ["torch.bfloat16", "torch.float32", "torch.bfloat16"]
+            or [r["remat"] for r in runs] != [False, True, True]
+            or runs[0]["recompute_launches_per_step"]["sel_fwd"] != 0
+            or min(r["recompute_launches_per_step"]["sel_fwd"] for r in runs[1:]) == 0):
+        raise AssertionError(f"precision_path: {runs}")
+    t1 = time.perf_counter()
+    insseg = _insseg_cli_run(INSSEG_ARGV + ["--compute_dtype", "bfloat16"],
+                             PRECISION_INSSEG_STEPS)
+    insseg_s = time.perf_counter() - t1
+    if insseg["dtype"] != "torch.bfloat16":
+        raise AssertionError(f"precision_path (b): {insseg}")
+    t2 = time.perf_counter()
+    c = precision_card_vs_cpu()
+    zoo_a = zoo["runs"][0] if zoo else None
+    rec = {"phase": "precision_path", "argv": LEARNING_CURVE_ARGV, "runs": runs,
+           "res16unet50_without_remat": zoo_a and {
+               k: zoo_a[k] for k in ("max_memory_allocated", "scenes_per_s",
+                                     "step_alone_ms")},
+           "insseg_bf16": insseg, "insseg_s": insseg_s,
+           "card_vs_cpu": c, "c_s": time.perf_counter() - t2,
+           "launches": {k: sum(r["launches"][k] for r in runs) + insseg["launches"][k]
+                        + sum(x["launches"][k] for x in c) for k in runs[0]["launches"]},
+           "ablation_launches": {k: sum(r["ablation_launches"][k] for r in runs)
+                                 + insseg["ablation_launches"][k]
+                                 for k in runs[0]["ablation_launches"]},
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    return rec
+
+
+
 
 _REPLACES = {
     "sel_fwd": ("languagegroundedsemseg_tpu/ops/onehot_conv.py:77", 96),
@@ -2811,6 +3348,9 @@ def main() -> int:
     insseg = phase_insseg_path()
     ddp = phase_ddp_path(trainer)
     zoo = phase_zoo_path()
+    classifier = phase_classifier_path()
+    simsiam = phase_simsiam_path()
+    precision = phase_precision_path(zoo)
 
     # one row per kernel, at its main forward width (dw: block8's convs);
     # launches per train step, beside the forward's
@@ -2827,6 +3367,9 @@ def main() -> int:
             "launches_insseg": insseg["launches"][name],
             "launches_ddp": ddp["launches"][name],
             "launches_zoo": zoo["launches"][name],
+            "launches_classifier": classifier["launches"][name],
+            "launches_simsiam": simsiam["launches"][name],
+            "launches_precision": precision["launches"][name],
             "width": width, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
@@ -2846,6 +3389,9 @@ def main() -> int:
             "launches_trainer": trainer["ablation_launches"][name],
             "launches_insseg": insseg["ablation_launches"][name],
             "launches_ddp": 0, "launches_zoo": 0,
+            "launches_classifier": classifier["ablation_launches"][name],
+            "launches_simsiam": simsiam["ablation_launches"][name],
+            "launches_precision": precision["ablation_launches"][name],
             "launches_per_ablation": ablation["launches"][name],
             "mode": rec.get("mode"), "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

@@ -26,15 +26,17 @@ class InstanceRes16UNet(Res16UNet34C):
 
     def __init__(self, in_channels: int = 3, out_channels: int = 20,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.02,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__(in_channels, out_channels, conv1_kernel_size,
-                         bn_momentum, device=device, generator=generator)
+                         bn_momentum, device=device, generator=generator,
+                         dtype=dtype)
         c = self.PLANES[-1]
         self.offsets_pre = SparseConv(c, c, None, use_bias=True, device=device,
-                                      generator=generator)
-        self.bntr_offset = Norm(c, bn_momentum, device=device)
+                                      generator=generator, dtype=dtype)
+        self.bntr_offset = Norm(c, bn_momentum, device=device, dtype=dtype)
         self.offsets = SparseConv(c, 3, None, use_bias=True, device=device,
-                                  generator=generator)
+                                  generator=generator, dtype=dtype)
 
     def forward(self, feats: torch.Tensor, graph: ConvGraph,
                 representation_only: bool = False

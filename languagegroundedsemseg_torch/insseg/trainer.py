@@ -13,8 +13,9 @@ run on ``device`` (the card unless the caller asks for the CPU), so on the
 card every conv of the backbone runs the port's kernels; the offset head's
 pointwise convs and the losses are plain tensor code. Metrics stay device
 tensors until they are logged; the validation's confusion counts
-accumulate on the device and are read once. bfloat16 compute raises
-``NotImplementedError``.
+accumulate on the device and are read once. ``config.compute_dtype`` is
+the model's compute dtype, as in JAX (:91); recomputation (``remat``) is
+the semantic trainer's only, as in JAX.
 
 Data parallelism (JAX :78-125, :186-195, :256): with ``num_devices`` ranks
 (one process each, ``parallel/mesh.py``) each rank's loader builds its
@@ -68,6 +69,7 @@ from languagegroundedsemseg_torch.train.solvers import (
 )
 from languagegroundedsemseg_torch.train.state import TrainState
 from languagegroundedsemseg_torch.train.step import TrainBatch, make_train_step
+from languagegroundedsemseg_torch.train.trainer import compute_dtype
 
 INSSEG_MODELS = {
     "InstanceRes16UNet": InstanceRes16UNet,
@@ -138,10 +140,6 @@ class InssegTrainer:
                  device="cuda", mesh: Optional[Mesh] = None):
         """``mesh``: this process's rank and group (``make_mesh``); None
         makes it from ``config.num_devices`` and ``device``."""
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(
-                "the port computes in float32: compute_dtype must be 'float32' "
-                "(ROADMAP Queue 1, item 9)")
         self.mesh = mesh or make_mesh(config.num_devices, device)
         self.device = self.mesh.device
         self.group, self.rank, self.world = self.mesh.group, self.mesh.rank, self.mesh.world
@@ -177,6 +175,7 @@ class InssegTrainer:
             bn_momentum=config.bn_momentum,
             device=self.device,
             generator=torch.Generator().manual_seed(config.seed),
+            dtype=compute_dtype(config),
         )
         convert_sync_batchnorm(self.model, self.group)
         broadcast_module(self.model, self.group)
@@ -316,7 +315,7 @@ class InssegTrainer:
             hist_acc = hist if hist_acc is None else hist_acc + hist
 
             m_valid = np.asarray(batch.graph.levels[0].valid) > 0
-            offsets = offsets.cpu().numpy()[m_valid]
+            offsets = offsets.to(torch.float32).cpu().numpy()[m_valid]
             probs = probs.cpu().numpy()[m_valid]
             coords = np.asarray(batch.graph.levels[0].coords)[m_valid, 1:]
             # vote shift (reference pl_Trainer.py:356)

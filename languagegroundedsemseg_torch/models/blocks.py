@@ -4,7 +4,7 @@ Counterpart of ``languagegroundedsemseg_tpu/models/blocks.py`` (reference
 models/modules/resnet_block.py BasicBlock :8-57, Bottleneck :72-119,
 NoReluBlock :134-161, and senet_block.py): every conv is bound to a named
 kernel map of the batch's ConvGraph, every norm is a ``Norm`` of the
-block's ``norm_type``.
+block's ``norm_type``; every layer computes in the block's ``dtype``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,10 @@ from languagegroundedsemseg_torch.models.layers import Norm, SELayer, SparseConv
 from languagegroundedsemseg_torch.sparse.types import ConvGraph
 
 
-def _norm_factory(bn_momentum, device, norm_type, max_batch):
+def _norm_factory(bn_momentum, device, norm_type, max_batch, dtype):
     return functools.partial(Norm, momentum=bn_momentum, device=device,
-                             norm_type=norm_type, max_batch=max_batch)
+                             norm_type=norm_type, max_batch=max_batch,
+                             dtype=dtype)
 
 
 class BasicBlock(nn.Module):
@@ -35,24 +36,25 @@ class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, planes: int, map_name: str,
                  kernel_volume: int = 27, bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 norm_type: str = "batch", max_batch: int = 32):
+                 norm_type: str = "batch", max_batch: int = 32,
+                 dtype=torch.float32):
         super().__init__()
-        norm = _norm_factory(bn_momentum, device, norm_type, max_batch)
+        norm = _norm_factory(bn_momentum, device, norm_type, max_batch, dtype)
         self.conv1 = SparseConv(in_channels, planes, map_name, kernel_volume,
-                                device=device, generator=generator)
+                                device=device, generator=generator, dtype=dtype)
         self.norm1 = norm(planes)
         self.conv2 = SparseConv(planes, planes, map_name, kernel_volume,
-                                device=device, generator=generator)
+                                device=device, generator=generator, dtype=dtype)
         self.norm2 = norm(planes)
-        self._downsample(in_channels, planes, norm, device, generator)
+        self._downsample(in_channels, planes, norm, device, generator, dtype)
 
-    def _downsample(self, in_channels, planes, norm, device, generator):
+    def _downsample(self, in_channels, planes, norm, device, generator, dtype):
         self.downsample = None
         c_out = planes * self.expansion
         if in_channels != c_out:
             self.downsample = nn.ModuleList([
                 SparseConv(in_channels, c_out, None, device=device,
-                           generator=generator),
+                           generator=generator, dtype=dtype),
                 norm(c_out),
             ])
 
@@ -82,19 +84,20 @@ class Bottleneck(BasicBlock):
     def __init__(self, in_channels: int, planes: int, map_name: str,
                  kernel_volume: int = 27, bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 norm_type: str = "batch", max_batch: int = 32):
+                 norm_type: str = "batch", max_batch: int = 32,
+                 dtype=torch.float32):
         nn.Module.__init__(self)
-        norm = _norm_factory(bn_momentum, device, norm_type, max_batch)
+        norm = _norm_factory(bn_momentum, device, norm_type, max_batch, dtype)
         self.conv1 = SparseConv(in_channels, planes, None, device=device,
-                                generator=generator)
+                                generator=generator, dtype=dtype)
         self.norm1 = norm(planes)
         self.conv2 = SparseConv(planes, planes, map_name, kernel_volume,
-                                device=device, generator=generator)
+                                device=device, generator=generator, dtype=dtype)
         self.norm2 = norm(planes)
         self.conv3 = SparseConv(planes, planes * self.expansion, None,
-                                device=device, generator=generator)
+                                device=device, generator=generator, dtype=dtype)
         self.norm3 = norm(planes * self.expansion)
-        self._downsample(in_channels, planes, norm, device, generator)
+        self._downsample(in_channels, planes, norm, device, generator, dtype)
 
     def _body(self, x, graph, mask, batch_idx):
         out = torch.relu(self.norm1(self.conv1(x, graph), mask, batch_idx))
@@ -110,11 +113,12 @@ class SEBasicBlock(BasicBlock):
                  kernel_volume: int = 27, bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
                  norm_type: str = "batch", max_batch: int = 32,
-                 reduction: int = 16):
+                 dtype=torch.float32, reduction: int = 16):
         super().__init__(in_channels, planes, map_name, kernel_volume,
-                         bn_momentum, device, generator, norm_type, max_batch)
+                         bn_momentum, device, generator, norm_type, max_batch,
+                         dtype)
         self.se = SELayer(planes, reduction, max_batch, device=device,
-                          generator=generator)
+                          generator=generator, dtype=dtype)
 
     def _body(self, x, graph, mask, batch_idx):
         return self.se(super()._body(x, graph, mask, batch_idx), batch_idx, mask)

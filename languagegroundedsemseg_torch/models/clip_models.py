@@ -26,6 +26,7 @@ from languagegroundedsemseg_torch.models.blocks import BasicBlock
 from languagegroundedsemseg_torch.models.layers import (
     SparseConv,
     SparseInstanceNorm,
+    dense,
     linear,
 )
 from languagegroundedsemseg_torch.models.res16unet import (
@@ -71,7 +72,7 @@ class Res16UNet34CR_Proj(Res16UNet34CR):
         out = super().forward(feats, graph, representation_only)
         if anchors is None:
             return out
-        return out, self.projection_layer(anchors.to(torch.float32))
+        return out, dense(self.projection_layer, anchors, self.dtype)
 
 
 class _PairedBackbone(Res16UNet34D):
@@ -86,7 +87,8 @@ class Res16UNet34DPaired(Res16UNetBase):
     """SimSiam dual forward with a shared backbone (reference :314-319):
     the 34D ``backbone`` runs on (feats, graph) and, when given, on
     (feats2, graph2), both under representation_only; returns the two
-    feature fields (the first twice without a second view)."""
+    feature fields (the first twice without a second view). ``dtype`` and
+    ``remat`` are the backbone's."""
 
     PLANES: Tuple[int, ...] = (32, 64, 128, 256, 256, 256, 256, 512)
     LAYERS: Tuple[int, ...] = (2, 3, 4, 6, 2, 2, 2, 2)
@@ -116,12 +118,12 @@ class Res16UNet34Dv2(Res16UNet34D):
     def _make_head(self, c, out_channels, spec, bn_momentum, device, generator):
         def pw(ci, co):
             return SparseConv(ci, co, None, use_bias=True, device=device,
-                              generator=generator)
+                              generator=generator, dtype=self.dtype)
 
         self.final_conv1 = pw(c, 512)
         self.final_conv2 = pw(512, 512)
         self.final_in = SparseInstanceNorm(512, max_batch=self.max_batch,
-                                           device=device)
+                                           device=device, dtype=self.dtype)
         self.final_out = pw(512, out_channels)
 
     def final_head(self, features: torch.Tensor, graph: ConvGraph,
@@ -141,15 +143,16 @@ class Res16UNet34Dv3(Res16UNet34D):
     def _make_head(self, c, out_channels, spec, bn_momentum, device, generator):
         def pw(ci, co):
             return SparseConv(ci, co, None, use_bias=True, device=device,
-                              generator=generator)
+                              generator=generator, dtype=self.dtype)
 
         def inorm(ch):
-            return SparseInstanceNorm(ch, max_batch=self.max_batch, device=device)
+            return SparseInstanceNorm(ch, max_batch=self.max_batch, device=device,
+                                      dtype=self.dtype)
 
         self.final_block = BasicBlock(
             c, self.PLANES[7], "l0.k3", map_volume(spec, "l0.k3"), bn_momentum,
             device=device, generator=generator, norm_type="instance",
-            max_batch=self.max_batch)
+            max_batch=self.max_batch, dtype=self.dtype)
         self.final_in0 = inorm(self.PLANES[7])
         self.final_conv1 = pw(self.PLANES[7], 512)
         self.final_conv2 = pw(512, 512)

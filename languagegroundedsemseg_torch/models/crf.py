@@ -27,8 +27,10 @@ from languagegroundedsemseg_torch.ops.points import knn
 class MeanFieldCRF(nn.Module):
     def __init__(self, num_classes: int, spatial_sigma: float = 1.0,
                  chromatic_sigma: float = 12.0, temporal_sigma: float = 1.0,
-                 iterations: int = 10, num_neighbors: int = 16, device="cuda"):
+                 iterations: int = 10, num_neighbors: int = 16, device="cuda",
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.spatial_sigma, self.chromatic_sigma = spatial_sigma, chromatic_sigma
         self.temporal_sigma = temporal_sigma
         self.iterations, self.num_neighbors = iterations, num_neighbors
@@ -42,7 +44,7 @@ class MeanFieldCRF(nn.Module):
                 time: Optional[torch.Tensor] = None) -> torch.Tensor:
         """unaries (N, C) logits; coords_xyz (N, 3) voxel coords; colors
         (N, 3) in [0, 255]; time (N,) for the trilateral 7D space ->
-        refined logits (N, C)."""
+        refined logits (N, C) in ``dtype`` (the iterations run in f32)."""
         f32 = torch.float32
         cols = [coords_xyz.to(f32) / self.spatial_sigma,
                 colors.to(f32) / self.chromatic_sigma]
@@ -61,7 +63,7 @@ class MeanFieldCRF(nn.Module):
             q = torch.softmax(q_logits, dim=-1)
             msg = (q[idx] * w[..., None]).sum(dim=1)
             q_logits = unaries - msg @ self.compatibility
-        return q_logits
+        return q_logits.to(self.dtype)
 
 
 class Wrapper(nn.Module):
@@ -79,11 +81,12 @@ class Wrapper(nn.Module):
     def __init__(self, base: nn.Module, num_classes: int,
                  spatial_sigma: float = 1.0, chromatic_sigma: float = 12.0,
                  temporal_sigma: float = 1.0, iterations: int = 10,
-                 device="cuda"):
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         self.base = base
         self.crf = MeanFieldCRF(num_classes, spatial_sigma, chromatic_sigma,
-                                temporal_sigma, iterations, device=device)
+                                temporal_sigma, iterations, device=device,
+                                dtype=dtype)
 
     def input_conv(self):
         return self.base.input_conv()

@@ -5,13 +5,22 @@ names follow the reference state_dict: a conv holds ``kernel`` (and
 ``bias``), a norm holds its batch norm as ``bn`` with ``weight``, ``bias``,
 ``running_mean`` and ``running_var``, and its instance norm as ``inorm``
 with ``weight`` and ``bias``.
+
+``dtype`` is each layer's compute dtype, JAX's flax ``dtype`` field: a conv
+casts its input, kernel and bias to it; a norm forms its statistics in f32
+and returns its output in it; a dense layer (``dense``) casts its input,
+weight and bias. Parameters stay f32, and their gradients come back f32
+through the casts.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from languagegroundedsemseg_torch.device import resolve_device
@@ -36,22 +45,49 @@ from languagegroundedsemseg_torch.sparse.types import (
 )
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The scope of a checkpointed block's recompute in the backward
+    (``torch.utils.checkpoint``'s recompute context): batch norms leave
+    their running statistics alone there, so they move once a step, as
+    flax's ``nn.remat`` moves ``batch_stats``."""
+    prev = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """A flax ``Dense`` with compute dtype ``dtype``: input, weight and
+    bias cast to it, the output in it; the product and the bias add round
+    one after the other, as flax's two ops do."""
+    return F.linear(x.to(dtype), lin.weight.to(dtype)) + lin.bias.to(dtype)
+
+
 class SparseConv(nn.Module):
     """Sparse convolution bound to a named kernel map in the ConvGraph.
 
     ``map_name=None`` is a kernel-size-1 (pointwise) conv with a
     (Cin, Cout) kernel; otherwise the kernel is (K, Cin, Cout) in the map's
     slot order (``sparse/offsets.py``). He-normal init with
-    fan_in = K * Cin, drawn from ``generator``.
+    fan_in = K * Cin, drawn from ``generator``. x, the kernel and the bias
+    are cast to ``dtype`` (JAX :59-77).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  map_name: Optional[str] = None, kernel_volume: int = 1,
                  use_bias: bool = False, device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.map_name = map_name
+        self.dtype = dtype
         shape = ((in_channels, out_channels) if map_name is None
                  else (kernel_volume, in_channels, out_channels))
         fan_in = in_channels * (1 if map_name is None else kernel_volume)
@@ -61,7 +97,9 @@ class SparseConv(nn.Module):
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor, graph: ConvGraph) -> torch.Tensor:
-        w, b = self.kernel, self.bias
+        dt = self.dtype
+        x, w = x.to(dt), self.kernel.to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
         if self.map_name is None:
             return pointwise_conv(x, w, b)
         km = graph.maps[self.map_name]
@@ -115,13 +153,17 @@ class SparseBatchNorm(nn.Module):
     training, (count, sum, sum of squares) are summed over the ranks before
     the statistics are formed, and the backward sums their cotangents over
     the ranks (JAX's psum over ``axis_name``, models/layers.py:161-164).
-    Eval mode never syncs."""
+    Eval mode never syncs. Statistics in f32, the output in ``dtype``; in
+    a checkpointed block's recompute (``recomputing``) the running
+    statistics are left as the first forward left them."""
 
     def __init__(self, channels: int, momentum: float = 0.02,
-                 eps: float = 1e-5, device="cuda", process_group=None):
+                 eps: float = 1e-5, device="cuda", process_group=None,
+                 dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.momentum, self.eps = momentum, eps
+        self.dtype = dtype
         self.process_group = process_group
         self.weight = nn.Parameter(torch.ones(channels, device=dev))
         self.bias = nn.Parameter(torch.zeros(channels, device=dev))
@@ -143,16 +185,18 @@ class SparseBatchNorm(nn.Module):
             cnt = torch.clamp(cnt, min=1.0)
             mean = sx / cnt
             var = torch.clamp(sxx / cnt - mean * mean, min=0.0)
-            with torch.no_grad():
-                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * unbiased)
+            if not getattr(_RECOMPUTE, "on", False):
+                self._update_running(mean, var, cnt)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (xf - mean) * inv + self.bias
+        return ((xf - mean) * inv + self.bias).to(self.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, cnt):
+        unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+        self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
 
 
 def convert_sync_batchnorm(model: nn.Module, process_group) -> nn.Module:
@@ -170,13 +214,14 @@ class SparseInstanceNorm(nn.Module):
     """Per-batch-item normalization over each sample's valid rows
     (ME.MinkowskiInstanceNorm): the mean and biased variance of each of
     ``max_batch`` items, broadcast back to its rows; the same in train and
-    eval mode."""
+    eval mode. Statistics in f32, the output in ``dtype``."""
 
     def __init__(self, channels: int, eps: float = 1e-5, max_batch: int = 32,
-                 device="cuda"):
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.eps, self.max_batch = eps, max_batch
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels, device=dev))
         self.bias = nn.Parameter(torch.zeros(channels, device=dev))
 
@@ -188,19 +233,22 @@ class SparseInstanceNorm(nn.Module):
         d = (xf - mean) * mask.to(torch.float32)[:, None]
         var = batch_broadcast(batch_mean(d * d, batch_idx, mask, self.max_batch),
                               batch_idx)
-        return (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(self.dtype)
 
 
 class SparseLayerNorm(nn.Module):
     """The reference's custom MinkowskiLayerNorm (models/layers.py:7-46):
     each row shifted by its batch item's mean, then scaled by its own
-    variance over the channels."""
+    variance over the channels. Statistics in f32, the output in
+    ``dtype``."""
 
     def __init__(self, channels: int, eps: float = 1e-5, max_batch: int = 32,
-                 device="cuda"):
+                 device="cuda", dtype=torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.eps, self.max_batch = eps, max_batch
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels, device=dev))
         self.bias = nn.Parameter(torch.zeros(channels, device=dev))
 
@@ -210,19 +258,21 @@ class SparseLayerNorm(nn.Module):
         d = xf - batch_broadcast(batch_mean(xf, batch_idx, mask, self.max_batch),
                                  batch_idx)
         var = (d * d).mean(dim=-1, keepdim=True)
-        return d * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return (d * torch.rsqrt(var + self.eps) * self.weight + self.bias).to(self.dtype)
 
 
 class SELayer(nn.Module):
     """Squeeze-excitation over sparse rows (reference
     models/modules/senet_block.py:9-24): per-item mean pool -> linear
     (``fc1``, channels / reduction) -> relu -> linear (``fc2``) -> sigmoid
-    gate, broadcast back to the rows."""
+    gate, broadcast back to the rows. The linears compute in ``dtype``."""
 
     def __init__(self, channels: int, reduction: int = 16, max_batch: int = 32,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
         self.max_batch = max_batch
+        self.dtype = dtype
         self.fc1 = linear(channels, channels // reduction, device=device,
                           generator=generator)
         self.fc2 = linear(channels // reduction, channels, device=device,
@@ -231,8 +281,9 @@ class SELayer(nn.Module):
     def forward(self, x: torch.Tensor, batch_idx: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
         pooled = batch_mean(x.to(torch.float32), batch_idx, mask, self.max_batch)
-        gate = torch.sigmoid(self.fc2(torch.relu(self.fc1(pooled))))
-        return x * batch_broadcast(gate, batch_idx)
+        dt = self.dtype
+        gate = torch.sigmoid(dense(self.fc2, torch.relu(dense(self.fc1, pooled, dt)), dt))
+        return (x * batch_broadcast(gate, batch_idx)).to(dt)
 
 
 def linear(in_features: int, out_features: int, device="cuda",
@@ -255,19 +306,21 @@ class Norm(nn.Module):
     """The reference's norm dispatcher (get_norm,
     models/modules/common.py:17-27): ``norm_type`` 'batch' holds a batch
     norm as ``bn``; 'instance' an instance norm as ``inorm``;
-    'instance_batch' both, the instance norm first."""
+    'instance_batch' both, the instance norm first. Each outputs ``dtype``."""
 
     def __init__(self, channels: int, momentum: float = 0.02, device="cuda",
-                 norm_type: str = "batch", max_batch: int = 32):
+                 norm_type: str = "batch", max_batch: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         if norm_type not in NORM_TYPES:
             raise ValueError(f"unknown norm type {norm_type!r}")
         self.inorm = self.bn = None
         if norm_type != "batch":
             self.inorm = SparseInstanceNorm(channels, max_batch=max_batch,
-                                            device=device)
+                                            device=device, dtype=dtype)
         if norm_type != "instance":
-            self.bn = SparseBatchNorm(channels, momentum=momentum, device=device)
+            self.bn = SparseBatchNorm(channels, momentum=momentum, device=device,
+                                      dtype=dtype)
 
     def forward(self, x, mask, batch_idx=None):
         if self.inorm is not None:

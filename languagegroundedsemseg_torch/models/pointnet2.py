@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from languagegroundedsemseg_torch.models.layers import linear
+from languagegroundedsemseg_torch.models.layers import dense, linear
 from languagegroundedsemseg_torch.ops.points import (
     ball_query,
     furthest_point_sample,
@@ -28,12 +28,14 @@ from languagegroundedsemseg_torch.ops.points import (
 
 class SharedMLP(nn.Module):
     """Per-point MLP (1x1 convs in the torch original): ``mlp{i}`` linear
-    layers, each followed by a relu."""
+    layers computing in ``dtype``, each followed by a relu."""
 
     def __init__(self, in_channels: int, channels: Sequence[int],
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
         self.n = len(channels)
+        self.dtype = dtype
         for i, c in enumerate(channels):
             setattr(self, f"mlp{i}", linear(in_channels, c, device=device,
                                             generator=generator))
@@ -41,7 +43,7 @@ class SharedMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            x = torch.relu(getattr(self, f"mlp{i}")(x))
+            x = torch.relu(dense(getattr(self, f"mlp{i}"), x, self.dtype))
         return x
 
 
@@ -55,12 +57,15 @@ class SetAbstraction(nn.Module):
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  mlp: Sequence[int], in_channels: int = 0, use_xyz: bool = True,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.use_xyz = use_xyz
         c_in = in_channels + (3 if use_xyz or in_channels == 0 else 0)
-        self.mlp = SharedMLP(c_in, mlp, device=device, generator=generator)
+        self.mlp = SharedMLP(c_in, mlp, device=device, generator=generator,
+                             dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, feats: Optional[torch.Tensor],
                 valid_mask: Optional[torch.Tensor] = None
@@ -81,13 +86,13 @@ class SetAbstraction(nn.Module):
             g = torch.cat([grouped_xyz, group_points(feats, safe)], dim=-1)
         else:
             g = group_points(feats, safe)
-        g = self.mlp(g.to(torch.float32))
+        g = self.mlp(g.to(self.dtype))
         g = torch.where(has[..., None], g,
                         torch.full((), float("-inf"), device=g.device))
         pooled = g.max(dim=1).values
         keep = (has.any(dim=1) & new_mask)[:, None]
         pooled = torch.where(keep, pooled, torch.zeros((), device=g.device))
-        return new_xyz, pooled, new_mask
+        return new_xyz, pooled.to(self.dtype), new_mask
 
 
 class FeaturePropagation(nn.Module):
@@ -97,9 +102,11 @@ class FeaturePropagation(nn.Module):
     the interpolated features plus the dense skip features."""
 
     def __init__(self, in_channels: int, mlp: Sequence[int], device="cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype=torch.float32):
         super().__init__()
-        self.mlp = SharedMLP(in_channels, mlp, device=device, generator=generator)
+        self.dtype = dtype
+        self.mlp = SharedMLP(in_channels, mlp, device=device, generator=generator,
+                             dtype=dtype)
 
     def forward(self, xyz_dense: torch.Tensor, feats_dense: Optional[torch.Tensor],
                 xyz_sparse: torch.Tensor, feats_sparse: torch.Tensor,
@@ -108,4 +115,4 @@ class FeaturePropagation(nn.Module):
         interp = three_interpolate(feats_sparse, idx, dist)
         if feats_dense is not None:
             interp = torch.cat([interp, feats_dense], dim=-1)
-        return self.mlp(interp.to(torch.float32))
+        return self.mlp(interp.to(self.dtype))

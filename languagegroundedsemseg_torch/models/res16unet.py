@@ -22,13 +22,15 @@ one.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from languagegroundedsemseg_torch.models.blocks import BLOCKS
-from languagegroundedsemseg_torch.models.layers import Norm, SparseConv
+from languagegroundedsemseg_torch.models.layers import Norm, SparseConv, recomputing
 from languagegroundedsemseg_torch.sparse.graph_host import (
     GraphSpec,
     MapSpec,
@@ -64,6 +66,12 @@ def res16unet_graph_spec(conv1_kernel_size: int = 3, d: int = 3) -> GraphSpec:
     return GraphSpec(num_levels=NUM_LEVELS, maps=maps, d=d)
 
 
+def _remat_contexts():
+    """``checkpoint``'s (forward, recompute) contexts: the recompute leaves
+    the running statistics alone."""
+    return contextlib.nullcontext(), recomputing()
+
+
 class Res16UNetBase(nn.Module):
     """Configurable Res16UNet; subclasses pin BLOCK / PLANES / LAYERS /
     NORM_TYPE like the reference variant zoo. Parameters are created on
@@ -92,11 +100,13 @@ class Res16UNetBase(nn.Module):
     def __init__(self, in_channels: int = 3, out_channels: int = 20,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 norm_type: Optional[str] = None, max_batch: int = 32):
+                 norm_type: Optional[str] = None, max_batch: int = 32,
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         P, L = self.PLANES, self.LAYERS
         self.norm_type = norm_type or self.NORM_TYPE
         self.max_batch = max_batch
+        self.dtype, self.remat = dtype, remat
         spec = self.graph_spec(conv1_kernel_size)
         block_cls = BLOCKS[self.BLOCK]
         exp = block_cls.expansion
@@ -106,11 +116,12 @@ class Res16UNetBase(nn.Module):
 
         def conv(ci, co, map_name):
             return SparseConv(ci, co, map_name, map_volume(spec, map_name),
-                              device=device, generator=generator)
+                              device=device, generator=generator, dtype=dtype)
 
         def norm(c):
             return Norm(c, bn_momentum, device=device,
-                        norm_type=self.norm_type, max_batch=max_batch)
+                        norm_type=self.norm_type, max_batch=max_batch,
+                        dtype=dtype)
 
         def blocks(n, ci, planes, lvl):
             out = []
@@ -118,7 +129,7 @@ class Res16UNetBase(nn.Module):
                 out.append(block_cls(
                     ci, planes, f"l{lvl}.k3", map_volume(spec, f"l{lvl}.k3"),
                     bn_momentum, device=device, generator=generator,
-                    norm_type=self.norm_type, max_batch=max_batch))
+                    norm_type=self.norm_type, max_batch=max_batch, dtype=dtype))
                 ci = planes * exp
             return nn.ModuleList(out)
 
@@ -148,7 +159,8 @@ class Res16UNetBase(nn.Module):
         conv with bias. CLIP variants make deeper heads, every module named
         final*."""
         self.final = SparseConv(c, out_channels, None, use_bias=True,
-                                device=device, generator=generator)
+                                device=device, generator=generator,
+                                dtype=self.dtype)
 
     def input_conv(self) -> SparseConv:
         """The conv that takes the input features (no dX in a train step)."""
@@ -157,6 +169,17 @@ class Res16UNetBase(nn.Module):
     def final_head(self, features: torch.Tensor, graph: ConvGraph,
                    batch_idx0, mask0) -> torch.Tensor:
         return self.final(features, graph)
+
+    def stage_blocks(self):
+        """The residual blocks of the eight stages (the ones ``remat``
+        checkpoints), in order."""
+        return [blk for s in range(1, 9) for blk in getattr(self, f"block{s}")]
+
+    def _block(self, blk, *args, **kwargs):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False,
+                              context_fn=_remat_contexts, **kwargs)
+        return blk(*args, **kwargs)
 
     def forward(self, feats: torch.Tensor, graph: ConvGraph,
                 representation_only: bool = False
@@ -180,7 +203,7 @@ class Res16UNetBase(nn.Module):
             out = getattr(self, f"conv{lvl}p{1 << e}s2")(out, graph)
             out = norm_relu(getattr(self, f"bn{lvl}"), out, lvl)
             for blk in getattr(self, f"block{lvl}"):
-                out = blk(out, graph, masks[lvl], bidx[lvl])
+                out = self._block(blk, out, graph, masks[lvl], bidx[lvl])
             skips.append(out)
 
         dec_skips = [skips[2], skips[1], skips[0], out_p1]
@@ -195,8 +218,8 @@ class Res16UNetBase(nn.Module):
             # (NoReluBlock)
             strip = d == 3 and (self.STRIP_FINAL_RELU or representation_only)
             for i, blk in enumerate(stage):
-                out = blk(out, graph, masks[lvl - 1], bidx[lvl - 1],
-                          final_relu=not (strip and i == len(stage) - 1))
+                out = self._block(blk, out, graph, masks[lvl - 1], bidx[lvl - 1],
+                                  final_relu=not (strip and i == len(stage) - 1))
 
         features = out
         if representation_only:

@@ -48,7 +48,8 @@ class StridedBlock(nn.Module):
     def __init__(self, in_channels: int, planes: int, lvl_in: int,
                  block: str = "basic", bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 norm_type: str = "batch", max_batch: int = 32):
+                 norm_type: str = "batch", max_batch: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         self.lvl_in, self.block = lvl_in, block
         exp = BLOCKS[block].expansion
@@ -56,11 +57,11 @@ class StridedBlock(nn.Module):
 
         def conv(ci, co, map_name=None, k=1):
             return SparseConv(ci, co, map_name, k, device=device,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
 
         def norm(c):
             return Norm(c, bn_momentum, device=device, norm_type=norm_type,
-                        max_batch=max_batch)
+                        max_batch=max_batch, dtype=dtype)
 
         if block == "basic":
             self.conv1 = conv(in_channels, planes, f"down_k3_l{lvl_in}", 27)
@@ -107,18 +108,19 @@ class ResNetBase(nn.Module):
     def __init__(self, in_channels: int = 3, out_channels: int = 20,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 norm_type: Optional[str] = None, max_batch: int = 32):
+                 norm_type: Optional[str] = None, max_batch: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         self.norm_type = norm_type or self.NORM_TYPE
         block_cls = BLOCKS[self.BLOCK]
         exp = block_cls.expansion
         mk = dict(bn_momentum=bn_momentum, device=device, generator=generator,
-                  norm_type=self.norm_type, max_batch=max_batch)
+                  norm_type=self.norm_type, max_batch=max_batch, dtype=dtype)
         self.conv1 = SparseConv(in_channels, self.INIT_DIM,
                                 f"l0.k{conv1_kernel_size}", conv1_kernel_size ** 3,
-                                device=device, generator=generator)
+                                device=device, generator=generator, dtype=dtype)
         self.bn1 = Norm(self.INIT_DIM, bn_momentum, device=device,
-                        norm_type=self.norm_type, max_batch=max_batch)
+                        norm_type=self.norm_type, max_batch=max_batch, dtype=dtype)
         c = self.INIT_DIM
         for s in range(4):
             lvl, planes = s + 2, self.PLANES[s]
@@ -128,7 +130,7 @@ class ResNetBase(nn.Module):
                 stage.append(block_cls(c, planes, f"l{lvl}.k3", 27, **mk))
             setattr(self, f"layer{s + 1}", nn.ModuleList(stage))
         self.final = SparseConv(c, out_channels, None, use_bias=True,
-                                device=device, generator=generator)
+                                device=device, generator=generator, dtype=dtype)
 
     def input_conv(self) -> SparseConv:
         return self.conv1

@@ -78,7 +78,8 @@ class MinkUNetBase(nn.Module):
     def __init__(self, in_channels: int = 3, out_channels: int = 20,
                  conv1_kernel_size: int = 3, bn_momentum: float = 0.02,
                  device="cuda", generator: Optional[torch.Generator] = None,
-                 norm_type: Optional[str] = None, max_batch: int = 32):
+                 norm_type: Optional[str] = None, max_batch: int = 32,
+                 dtype=torch.float32):
         super().__init__()
         P, L = self.PLANES, self.LAYERS
         self.norm_type = norm_type or self.NORM_TYPE
@@ -89,11 +90,12 @@ class MinkUNetBase(nn.Module):
         def conv(ci, co, map_name=None):
             k = 1 if map_name is None else map_volume(spec, map_name)
             return SparseConv(ci, co, map_name, k, device=device,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
 
         def norm(c):
             return Norm(c, bn_momentum, device=device,
-                        norm_type=self.norm_type, max_batch=max_batch)
+                        norm_type=self.norm_type, max_batch=max_batch,
+                        dtype=dtype)
 
         def blocks(n, ci, planes, lvl):
             out = []
@@ -101,7 +103,7 @@ class MinkUNetBase(nn.Module):
                 out.append(block_cls(
                     ci, planes, f"l{lvl}.k3", map_volume(spec, f"l{lvl}.k3"),
                     bn_momentum, device=device, generator=generator,
-                    norm_type=self.norm_type, max_batch=max_batch))
+                    norm_type=self.norm_type, max_batch=max_batch, dtype=dtype))
                 ci = planes * exp
             return nn.ModuleList(out)
 
@@ -133,7 +135,8 @@ class MinkUNetBase(nn.Module):
         self.final_conv = conv(c + hyper_c, 512)
         self.final_bn = norm(512)
         self.final_out = SparseConv(512, out_channels, None, use_bias=True,
-                                    device=device, generator=generator)
+                                    device=device, generator=generator,
+                                    dtype=dtype)
 
     def input_conv(self) -> SparseConv:
         return self.conv1p1s1

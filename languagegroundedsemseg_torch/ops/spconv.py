@@ -204,12 +204,18 @@ def sparse_conv_parent(x, w, pmap, bias=None, idx_down=None):
 
 
 def pointwise_conv(x, w, bias=None) -> torch.Tensor:
-    """Kernel-size-1 conv == dense matmul over the feature dim."""
+    """Kernel-size-1 conv == dense matmul over the feature dim, accumulated
+    in f32 and returned in x's dtype (JAX's ``preferred_element_type=f32``
+    then ``astype``): a bf16 x and w make one bf16 GEMM (tensor cores on
+    the card, f32 accumulation, one rounding of the result)."""
     if w.dim() == 3:
         if w.shape[0] != 1:
             raise ValueError(f"pointwise kernel has {w.shape[0]} slots")
         w = w[0]
-    out = (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        out = x @ w.to(torch.bfloat16)
+    else:
+        out = (x.to(torch.float32) @ w.to(torch.float32)).to(x.dtype)
     if bias is not None:
         out = out + bias
     return out

@@ -28,17 +28,28 @@ both loaders ship the level-0 coords the CRF reads, the train step draws
 the wrapper's coin from its generator, and the CRF's parameters train at
 ``wrapper_lr`` (their own parameter group, JAX's masked update scale).
 
+Compute dtype and recomputation (JAX :123-138): the model is built with
+``config.compute_dtype`` as every layer's dtype (parameters stay f32) and,
+for the Res16UNet family, with ``config.remat`` (each residual block
+checkpointed); the constructor arguments a model class does not take are
+dropped, as JAX's ``_mk`` drops the fields a flax model lacks.
+
+The classifier stage (JAX :584-643): with ``classifier_resample_features``
+in classifier mode, ``fit`` extracts the frozen model's per-voxel features
+over both loaders once (``data/feature_dataset.py``), trains the linear
+``ClassifierNet`` on class-balanced redraws of them
+(``train/classifier.py``) and writes ``classifier_features.ckpt`` (a torch
+blob of the classifier's tensors) with its history beside it.
+
 Instance datasets train with ``insseg.trainer.InssegTrainer``; this
 trainer refuses them. It also refuses a model whose graph spec is not the
 loaders' (ResNet, the 4D ST variants): the JAX trainer builds its loaders
-with the Res16UNet spec whatever the model (ROADMAP Queue 3). Not ported
-yet, raising ``NotImplementedError`` with its ROADMAP Queue 1 item: the
-classifier mode and its feature-resampling stage (item 7), bf16 compute and
-remat (item 9).
+with the Res16UNet spec whatever the model (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import time
@@ -91,21 +102,26 @@ def select_mode(config: Config) -> str:
     return "baseline"
 
 
-def _not_ported(config: Config, mode: str) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP item."""
-    if mode == "insseg":
-        raise ValueError(
-            f"{config.dataset} is an instance dataset: instance segmentation "
-            "trains with insseg.trainer.InssegTrainer (cli.main routes it there)")
-    if mode == "classifier" or config.classifier_resample_features:
-        raise NotImplementedError(
-            "the classifier mode and classifier_resample_features are not "
-            "ported yet (ROADMAP Queue 1, item 7)")
-    if config.compute_dtype != "float32" or config.remat:
-        raise NotImplementedError(
-            "the port computes in float32 without recomputation: "
-            "compute_dtype must be 'float32' and remat False "
-            "(ROADMAP Queue 1, item 9)")
+def compute_dtype(config: Config) -> torch.dtype:
+    """The layers' compute dtype ``config.compute_dtype`` names."""
+    return torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
+
+
+def accepted_kwargs(model_cls, kwargs: Dict) -> Dict:
+    """The entries of ``kwargs`` that ``model_cls``'s constructor takes,
+    read along its MRO while constructors pass ``**kwargs`` on (JAX's
+    ``_mk`` keeps the flax fields a model has, trainer.py:125-138)."""
+    names = set()
+    for klass in model_cls.__mro__:
+        init = klass.__dict__.get("__init__")
+        if init is None:
+            continue
+        params = inspect.signature(init).parameters.values()
+        names |= {p.name for p in params
+                  if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)}
+        if not any(p.kind == p.VAR_KEYWORD for p in params):
+            break
+    return {k: v for k, v in kwargs.items() if k in names}
 
 
 def wrapped(config: Config) -> bool:
@@ -142,7 +158,10 @@ class Trainer:
         makes it from ``config.num_devices`` and ``device``."""
         self.config = config
         self.mode = mode or select_mode(config)
-        _not_ported(config, self.mode)
+        if self.mode == "insseg":
+            raise ValueError(
+                f"{config.dataset} is an instance dataset: instance segmentation "
+                "trains with insseg.trainer.InssegTrainer (cli.main routes it there)")
         self.mesh = mesh or make_mesh(config.num_devices, device)
         self.device = self.mesh.device
         self.group, self.rank, self.world = self.mesh.group, self.mesh.rank, self.mesh.world
@@ -182,8 +201,10 @@ class Trainer:
         # unlike flax, no init batch is needed to infer shapes (the JAX
         # trainer's _first_batch has no counterpart here). Every rank makes
         # the same ones; rank 0's (loaded weights included) are broadcast
-        # all the same.
-        self.model = model_cls(
+        # all the same. ClassifierNet as the model takes the loader's feature
+        # width as its input (flax infers it from the init batch).
+        self.dtype = compute_dtype(config)
+        self.model = model_cls(**accepted_kwargs(model_cls, dict(
             in_channels=getattr(self.dataset, "NUM_IN_CHANNEL", 3),
             out_channels=self.num_labels,
             conv1_kernel_size=config.conv1_kernel_size,
@@ -191,7 +212,9 @@ class Trainer:
             device=self.device,
             generator=torch.Generator().manual_seed(config.seed),
             max_batch=max(config.batch_size, config.val_batch_size) + 1,
-        )
+            dtype=self.dtype,
+            remat=config.remat,
+        )))
         if self.wrapped:
             # reference main.py load_wrapper wiring, models/wrapper.py:20-30
             from languagegroundedsemseg_torch.models import load_wrapper
@@ -200,7 +223,8 @@ class Trainer:
                 self.model, self.num_labels,
                 spatial_sigma=float(config.crf_spatial_sigma),
                 chromatic_sigma=float(config.crf_chromatic_sigma),
-                iterations=config.meanfield_iterations, device=self.device)
+                iterations=config.meanfield_iterations, device=self.device,
+                dtype=self.dtype)
         self._maybe_load_weights()
         convert_sync_batchnorm(self.model, self.group)
         broadcast_module(self.model, self.group)
@@ -551,14 +575,65 @@ class Trainer:
                     out[f"val_{name}_map"] = float(np.nanmean(aps[sel]))
         return out
 
+    def fit_classifier_features(self, max_epochs: Optional[int] = None):
+        """The classifier stage on precomputed features (reference
+        pl_ClassifierTrainer semantics; JAX :584-621): extract the frozen
+        model's features over the train and val loaders once, then train
+        the linear classifier with per-epoch class-balanced resampling.
+        Returns (classifier, history); each epoch's record is logged with
+        phase "classifier"."""
+        from languagegroundedsemseg_torch.data.feature_dataset import (
+            ResampledFeatureDataset,
+            extract_features,
+        )
+        from languagegroundedsemseg_torch.train.classifier import (
+            train_classifier_on_features,
+        )
+
+        cfg = self.config
+        feats, labels = extract_features(
+            self.p_eval_step, self.train_loader, ignore_index=cfg.ignore_label)
+        vfeats, vlabels = extract_features(
+            self.p_eval_step, self.val_loader, ignore_index=cfg.ignore_label)
+        ds = ResampledFeatureDataset(
+            feats, labels, num_classes=self.num_labels,
+            samples_per_class=cfg.classifier_samples_per_class, seed=cfg.seed)
+        val = (ResampledFeatureDataset(
+            vfeats, vlabels, num_classes=self.num_labels,
+            samples_per_class=cfg.classifier_samples_per_class,
+            seed=cfg.seed + 1) if len(vfeats) else None)
+        return train_classifier_on_features(
+            ds, num_classes=self.num_labels,
+            epochs=max_epochs if max_epochs is not None else cfg.max_epoch,
+            lr=cfg.lr, momentum=cfg.sgd_momentum, seed=cfg.seed, val=val,
+            log_fn=lambda rec: self.log({"phase": "classifier", **rec}),
+            device=self.device,
+        )
+
     def fit(self, max_epochs: Optional[int] = None, val_every: int = 1,
             max_steps_per_epoch: Optional[int] = None):
         """Train for epochs [start, max_epochs) (``config.max_epoch`` when
         None); start is 0, or the epoch after the one a resumed checkpoint
         recorded (PL's resume semantics: max_epochs counts from the start
-        of the run, not from the resume)."""
+        of the run, not from the resume).
+
+        In classifier mode with ``classifier_resample_features``, run the
+        classifier stage instead (``fit_classifier_features``), keep the
+        classifier as ``self.classifier`` and write its tensors to
+        ``classifier_features.ckpt`` and ``{"history": ...}`` to the
+        ``.json`` beside it (rank 0)."""
         cfg = self.config
         epochs = max_epochs if max_epochs is not None else cfg.max_epoch
+        if self.mode == "classifier" and cfg.classifier_resample_features:
+            self.classifier, history = self.fit_classifier_features(max_epochs)
+            if self.mesh.is_writer:
+                path = os.path.join(self.log_dir, "classifier_features.ckpt")
+                torch.save({k: v.detach().cpu()
+                            for k, v in self.classifier.state_dict().items()}, path)
+                with open(path + ".json", "w") as f:
+                    json.dump({"history": history}, f, indent=2, default=str)
+            barrier(self.group)
+            return self.state
         start_epoch = 0
         if cfg.resume:
             path = cfg.resume if os.path.isfile(cfg.resume) else find_resume_checkpoint(cfg.resume)

@@ -417,13 +417,46 @@ def test_insseg_defaults_to_the_card(tmp_path):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(num_devices=2), RuntimeError, "torchrun"),
-    (dict(compute_dtype="bfloat16"), NotImplementedError, "float32"),
-], ids=["kw0-item 5", "kw1-float32"])
+], ids=["kw0-item 5"])
 def test_unported_insseg_options_raise(tmp_path, kw, exc, match):
-    """bfloat16 is not ported; more than one device without a process
-    group (one process per rank) raises naming torchrun."""
+    """More than one device without a process group (one process per
+    rank) raises naming torchrun."""
     with pytest.raises(exc, match=match):
         _port(tmp_path, **kw)
+
+
+# one bf16 train step's losses against JAX's bf16 losses: the same casts,
+# but a CPU bf16 dot may round a product's last bit differently (2^-8),
+# spread through the layers (tests/test_torch_precision.py)
+BF16_LOSS_RTOL = 3e-2
+
+
+def test_bf16_train_step_losses_match_jax(tmp_path):
+    """``compute_dtype="bfloat16"``: both trainers build the model in bf16
+    (its outputs bf16, its parameters f32); one port train step's losses
+    against the JAX trainer's train-mode losses on the same batch from the
+    same weights."""
+    tr_j = _jax_trainer(tmp_path, compute_dtype="bfloat16")
+    tr_p = _port(tmp_path, compute_dtype="bfloat16")
+    tr_p.model.load_state_dict(state_dict_from_jax(tr_j.state.params,
+                                                   tr_j.state.batch_stats))
+    assert tr_p.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tr_p.model.parameters())
+    jbatch = tr_j._make_batch([0, 1])
+    batch = tr_p._host_batch([tr_p.dataset.get_item(i, np.random.default_rng((0, i)))
+                              for i in (0, 1)])
+    variables = {"params": tr_j.state.params, "batch_stats": tr_j.state.batch_stats}
+    fn = jax.jit(lambda v, b: tr_j._losses(v, b, True)[:2])
+    want_total, want = fn.lower(variables, jbatch).compile(
+        compiler_options=FAST_COMPILE)(variables, jbatch)
+    with gather_paths():
+        tr_p.state, got = tr_p.p_train_step(tr_p.state, batch)
+    print({k: (float(got[k]), float(v)) for k, v in want.items()})  # shown by -rP
+    for k in ("semantic_loss", "offset_norm_loss", "offset_dir_loss"):
+        assert got[k].dtype == torch.float32
+        assert _rel(got[k], want[k]) <= BF16_LOSS_RTOL, k
+    assert _rel(got["loss"], want_total) <= BF16_LOSS_RTOL
+    assert all(torch.isfinite(p).all() for p in tr_p.model.parameters())
 
 
 def test_semseg_trainer_refuses_instance_datasets(tmp_path):

@@ -18,6 +18,7 @@ import functools
 import glob
 import json
 import os
+from types import SimpleNamespace
 from unittest import mock
 
 import jax
@@ -87,7 +88,7 @@ def gather_paths():
     return stack
 
 
-def _jax_trainer(tmp_path, seed=0, **kw):
+def _jax_trainer(tmp_path, seed=0, mode=None, **kw):
     """The JAX trainer with random weights of its model's shapes (no eager
     flax init)."""
     def init(init_fn, *args, **kwargs):
@@ -96,7 +97,7 @@ def _jax_trainer(tmp_path, seed=0, **kw):
 
     cfg = JaxConfig(**_kw(log_dir=str(tmp_path / "jax"), **kw))
     with mock.patch.object(jax_trainer, "init_on_cpu", init):
-        return jax_trainer.Trainer(cfg)
+        return jax_trainer.Trainer(cfg, mode=mode)
 
 
 def _copy_weights(tr_j, tr_p):
@@ -115,19 +116,14 @@ def test_select_mode_equals_jax(kw):
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(dataset="SyntheticInstanceDataset", num_devices=2), RuntimeError, "torchrun"),
-    (dict(model="ClassifierNet"), NotImplementedError, "item 7"),
-    (dict(classifier_resample_features=True), NotImplementedError, "item 7"),
     (dict(model="ResNet14"), ValueError, "graph spec"),
     (dict(num_devices=2), RuntimeError, "torchrun"),
-    (dict(remat=True), NotImplementedError, "item 9"),
-], ids=["kw0-item 5", "kw1-item 7", "kw2-item 7", "kw3-graph spec", "kw4-item 5",
-        "kw5-item 9"])
+], ids=["kw0-item 5", "kw3-graph spec", "kw4-item 5"])
 def test_unported_modes_raise(tmp_path, kw, exc, match):
     """Each mode's trainer as cli.main picks it: instance datasets go to
-    InssegTrainer, the rest to Trainer. The unported modes raise naming
-    their ROADMAP item; a model whose graph spec the loaders do not build
-    raises; more than one device without a process group (one process per
-    rank) raises naming torchrun."""
+    InssegTrainer, the rest to Trainer. A model whose graph spec the
+    loaders do not build raises; more than one device without a process
+    group (one process per rank) raises naming torchrun."""
     cfg = Config(**_kw(log_dir=str(tmp_path / "run"), **kw))
     with pytest.raises(exc, match=match):
         if select_mode(cfg) == "insseg":
@@ -313,3 +309,115 @@ def test_two_fit_steps_track_jax(tmp_path):
     assert len(lp) == len(lj) == 2
     assert abs(lp[0] - lj[0]) <= 1e-5 * abs(lj[0])
     assert lp[1] < lp[0] and lj[1] < lj[0]
+
+
+# ---- the classifier stage, recomputation, Res16UNet50's validation ------
+
+CLASSIFIER_CLI = ["--dataset", "SyntheticTiny20Dataset", "--model", "ClassifierNet",
+                  "--classifier_resample_features", "true", "--fixed_capacity", "2048",
+                  "--batch_size", "2", "--val_batch_size", "2", "--num_workers", "1",
+                  "--num_val_workers", "1", "--max_epoch", "3", "--lr", "0.1",
+                  "--ignore_label", "255", "--classifier_samples_per_class", "64",
+                  "--num_devices", "1"]
+# the classifier stage's history: the same f32 SGD steps on features equal
+# to f32 rounding, sums in another order, compounded over the epochs
+HISTORY_RTOL = 1e-4
+# val accuracy: an argmax tie among near-equal logits can flip a row
+ACC_ATOL = 2e-3
+
+
+def _history(log_dir):
+    with open(os.path.join(log_dir, "classifier_features.ckpt.json")) as f:
+        return json.load(f)["history"]
+
+
+def _assert_history_close(got, want):
+    assert [r.keys() for r in got] == [r.keys() for r in want]
+    assert [r["epoch"] for r in got] == [r["epoch"] for r in want]
+    for g, w in zip(got, want):
+        assert abs(g["loss"] - w["loss"]) <= HISTORY_RTOL * abs(w["loss"]), (g, w)
+        assert abs(g["val_acc"] - w["val_acc"]) <= ACC_ATOL, (g, w)
+
+
+def test_classifier_cli_matches_jax(tmp_path):
+    """``cli.main`` with ``--model ClassifierNet
+    --classifier_resample_features true`` in both packages: the port's
+    classifier stage runs (its features are the voxel features, which
+    ClassifierNet returns), writes the classifier's tensors and the history,
+    and the history equals JAX's (the classifier starting from JAX's
+    PRNGKey(seed) init); then the test pass runs."""
+    from languagegroundedsemseg_tpu.cli.main import main as jax_main
+    from languagegroundedsemseg_torch.cli.main import main as port_main
+    from test_torch_classifier import jax_initialized_classifier
+
+    jax_main(CLASSIFIER_CLI + ["--log_dir", str(tmp_path / "jax")])
+    with jax_initialized_classifier():
+        metrics = port_main(CLASSIFIER_CLI + ["--log_dir", str(tmp_path / "port")],
+                            device="cpu")
+    got, want = _history(tmp_path / "port"), _history(tmp_path / "jax")
+    print(f"port {got}\njax  {want}")
+    assert len(got) == 3
+    _assert_history_close(got, want)
+    blob = torch.load(tmp_path / "port" / "classifier_features.ckpt", weights_only=True)
+    assert set(blob) == {"classifier.weight", "classifier.bias"}
+    assert blob["classifier.weight"].shape == (20, 3)
+    assert 0.0 <= metrics["val_miou"] <= 1.0
+    assert [r["epoch"] for r in _records(tmp_path / "port", "classifier")] == [0, 1, 2]
+
+
+def test_classifier_stage_on_a_backbone_matches_jax(tmp_path):
+    """``Trainer(cfg, mode="classifier")`` with
+    ``classifier_resample_features`` on Res16UNet14A, the same weights in
+    both packages: ``fit`` extracts the backbone's features over both
+    loaders, trains the classifier, and writes the same files and the same
+    history as JAX's."""
+    from test_torch_classifier import jax_initialized_classifier
+
+    kw = dict(classifier_resample_features=True, classifier_samples_per_class=64,
+              lr=0.05)
+    tr_j = _jax_trainer(tmp_path, mode="classifier", **kw)
+    tr_p = Trainer(Config(**_kw(log_dir=str(tmp_path / "run"), **kw)),
+                   mode="classifier", device="cpu")
+    assert tr_p.mode == tr_j.mode == "classifier"
+    _copy_weights(tr_j, tr_p)
+    # JAX's stage applies its eval model eagerly: jitted here, the same
+    # program runs in a fraction of the time
+    tr_j.eval_model = SimpleNamespace(apply=jax.jit(
+        tr_j.eval_model.apply, static_argnames=("train",)))
+    tr_j.fit(max_epochs=2)
+    with gather_paths(), jax_initialized_classifier():
+        tr_p.fit(max_epochs=2)
+    assert tr_p.state.step == 0  # the backbone did not train
+    got, want = _history(tr_p.log_dir), _history(tr_j.log_dir)
+    print(f"port {got}\njax  {want}")
+    _assert_history_close(got, want)
+    assert sorted(f for f in os.listdir(tr_p.log_dir) if f.startswith("classifier")) == [
+        "classifier_features.ckpt", "classifier_features.ckpt.json"]
+    blob = torch.load(os.path.join(tr_p.log_dir, "classifier_features.ckpt"),
+                      weights_only=True)
+    assert blob["classifier.weight"].shape == (20, 96)  # 14A's features
+    for k, v in tr_p.classifier.state_dict().items():
+        assert torch.equal(blob[k], v)
+
+
+def test_remat_step_matches_jax(tmp_path):
+    """One train step of both trainers with ``remat`` on the same val
+    batch from the same weights: the loss and the BN running statistics
+    (moved once, as flax's ``nn.remat`` moves ``batch_stats``)."""
+    kw = dict(remat=True, balanced_category_sampling=False)
+    tr_j = _jax_trainer(tmp_path, **kw)
+    tr_p = _port(tmp_path, **kw)
+    assert tr_p.model.remat
+    _copy_weights(tr_j, tr_p)
+    jbatch = next(iter(tr_j.val_loader))
+    batch = next(iter(tr_p.val_loader))
+    new, want = tr_j.p_train_step(tr_j.state, jbatch, jax.random.PRNGKey(0))
+    with gather_paths():
+        _, got = tr_p.p_train_step(tr_p.state, batch, tr_p.generator)
+    print(float(got["loss"]), float(want["loss"]))
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+    stats = state_dict_from_jax({}, jax.device_get(new.batch_stats))
+    after = tr_p.model.state_dict()
+    for k, v in stats.items():
+        np.testing.assert_allclose(after[k].numpy(), v.numpy(), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
