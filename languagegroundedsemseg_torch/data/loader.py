@@ -36,6 +36,7 @@ import dataclasses
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from time import perf_counter
 from typing import Iterator, List, Optional
 
 import numpy as np
@@ -45,6 +46,7 @@ from languagegroundedsemseg_torch.data.batching import BatchBuilder
 from languagegroundedsemseg_torch.data.dataset import DatasetPhase, build_input_transforms
 from languagegroundedsemseg_torch.device import resolve_device
 from languagegroundedsemseg_torch.train.step import TrainBatch
+from languagegroundedsemseg_torch.utils.observability import span
 
 _DATASETS = {}
 
@@ -73,11 +75,15 @@ def _populate():
 
 
 class LoaderCounters:
-    """Thread-safe data-loss / fill counters, logged by the trainer.
+    """Thread-safe data-loss / fill / time counters, logged by the trainer.
 
     The reference's analog (limit_numpoints truncation, lib/transforms.py:405)
     prints a warning per event; here every silent-drop site increments a
-    counter so truncation is observable in metrics.jsonl."""
+    counter so truncation is observable in metrics.jsonl. Beside them,
+    running sums on the host clock where the loader's spans are: each
+    scene's ``get_item``, each batch's build, each wait of the consumer
+    for its next batch, and the bytes of each batch handed to the
+    device."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -87,10 +93,20 @@ class LoaderCounters:
         self.level_overflows: dict = {}  # level -> count of truncated batches
         self.level_fill_sum: dict = {}  # level -> sum of num/capacity
         self.level_num_sum: dict = {}  # level -> sum of valid rows
+        self.get_item_s = 0.0
+        self.build_s = 0.0
+        self.wait_s = 0.0
+        self.waits = 0
+        self.h2d_bytes = 0
+        self.copies = 0
 
-    def update(self, stats: dict):
+    def update(self, stats: dict, get_item_s: float, build_s: float):
+        """One built batch: its ``build_host`` stats and the host seconds
+        its scenes' ``get_item`` and its build took."""
         with self._lock:
             self.batches += 1
+            self.get_item_s += get_item_s
+            self.build_s += build_s
             self.scenes_dropped += stats.get("scenes_dropped", 0)
             self.voxels_dropped += stats.get("voxels_dropped", 0)
             for l, (num, cap, overflowed) in stats.get("levels", {}).items():
@@ -98,7 +114,19 @@ class LoaderCounters:
                 self.level_fill_sum[l] = self.level_fill_sum.get(l, 0.0) + num / max(cap, 1)
                 self.level_num_sum[l] = self.level_num_sum.get(l, 0) + int(num)
 
+    def add_wait(self, seconds: float):
+        with self._lock:
+            self.wait_s += seconds
+            self.waits += 1
+
+    def add_copy(self, nbytes: int):
+        with self._lock:
+            self.h2d_bytes += nbytes
+            self.copies += 1
+
     def snapshot(self) -> dict:
+        """The counts, each level's mean fill, and the means per batch of
+        the time sums (ms) and of the bytes handed to the device (MB)."""
         with self._lock:
             out = {
                 "loader_batches": self.batches,
@@ -110,23 +138,34 @@ class LoaderCounters:
             if self.batches:
                 for l, s in sorted(self.level_fill_sum.items()):
                     out[f"loader_fill_l{l}"] = round(s / self.batches, 4)
+                out["loader_get_item_ms"] = round(1e3 * self.get_item_s / self.batches, 3)
+                out["loader_build_ms"] = round(1e3 * self.build_s / self.batches, 3)
+            if self.waits:
+                out["loader_wait_ms"] = round(1e3 * self.wait_s / self.waits, 3)
+            if self.copies:
+                out["loader_h2d_mb"] = round(self.h2d_bytes / self.copies / 1e6, 3)
             return out
 
 
-def batch_tensors(obj) -> Iterator[torch.Tensor]:
-    """Every tensor leaf of a batch (TrainBatch, ConvGraph and their maps,
-    walked through dataclass fields, dicts and sequences)."""
-    if isinstance(obj, torch.Tensor):
+def _leaves(obj, kind) -> Iterator:
+    """Every leaf of type ``kind`` of a batch (TrainBatch, ConvGraph and
+    their maps, walked through dataclass fields, dicts and sequences)."""
+    if isinstance(obj, kind):
         yield obj
     elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
-            yield from batch_tensors(getattr(obj, f.name))
+            yield from _leaves(getattr(obj, f.name), kind)
     elif isinstance(obj, dict):
         for v in obj.values():
-            yield from batch_tensors(v)
+            yield from _leaves(v, kind)
     elif isinstance(obj, (list, tuple)):
         for v in obj:
-            yield from batch_tensors(v)
+            yield from _leaves(v, kind)
+
+
+def batch_tensors(obj) -> Iterator[torch.Tensor]:
+    """Every tensor leaf of a batch."""
+    return _leaves(obj, torch.Tensor)
 
 
 class DataLoader:
@@ -211,9 +250,13 @@ class DataLoader:
 
     def _build_one(self, indices: List[int], batch_counter: int) -> TrainBatch:
         scenes, items = [], []
+        get_item_s = 0.0
         for j, idx in enumerate(indices):
             rng = np.random.default_rng((self.seed, batch_counter, j))
-            item = self.dataset.get_item(int(idx), rng)
+            with span("lgs.loader.get_item", (batch_counter, int(idx))):
+                t0 = perf_counter()
+                item = self.dataset.get_item(int(idx), rng)
+                get_item_s += perf_counter() - t0
             items.append(item)
             feats = item["feats"]
             labels = item["labels"]
@@ -262,13 +305,19 @@ class DataLoader:
                     else np.eye(4), np.float32,
                 ).reshape(16)
                 e["transform"] = np.tile(tr, (len(e["scene_idx"]), 1))
-        batch = self.builder.build_host(scenes, extras=extras, stats_out=stats)
-        self.counters.update(stats)
+        # the span and the clock sit at the call: only the loader knows the
+        # batch counter
+        with span("lgs.loader.build", (batch_counter,)):
+            t0 = perf_counter()
+            batch = self.builder.build_host(scenes, extras=extras, stats_out=stats)
+            build_s = perf_counter() - t0
+        self.counters.update(stats, get_item_s, build_s)
         return batch
 
     def _build_group(self, index_groups: List[List[int]], base_counter: int):
         # this rank's row of the (num_devices, batch_size) group
-        b = self._build_one(index_groups[self.rank], base_counter + self.rank)
+        counter = base_counter + self.rank
+        b = self._build_one(index_groups[self.rank], counter)
         if getattr(b, "graph", None) is not None:
             # pinned builds keep flats (see batching.py); no cross-shard
             # decision here, so drop covered ones now
@@ -277,7 +326,12 @@ class DataLoader:
             )
 
             b = b.replace(graph=drop_covered_flat_maps(b.graph))
-        return self._to_device(b)
+        # the host arrays are what crosses to the device
+        nbytes = sum(a.nbytes for a in _leaves(b, np.ndarray))
+        with span("lgs.loader.h2d", (counter,)):
+            built = self._to_device(b)
+        self.counters.add_copy(nbytes)
+        return built
 
     def _to_device(self, b: TrainBatch):
         """(batch on the device, copy-done event or None). On the card the
@@ -345,13 +399,17 @@ class DataLoader:
         t.start()
         try:
             while True:
-                item = fut_q.get()
-                if item is None:
-                    return
-                if isinstance(item, BaseException):
-                    raise item
-                # result() re-raises any worker exception
-                yield self._ready(item.result())
+                with span("lgs.loader.wait"):
+                    t0 = perf_counter()
+                    item = fut_q.get()
+                    if item is None:
+                        return
+                    if isinstance(item, BaseException):
+                        raise item
+                    # result() re-raises any worker exception
+                    built = item.result()
+                self.counters.add_wait(perf_counter() - t0)
+                yield self._ready(built)
         finally:
             stop.set()
             pool.shutdown(wait=False, cancel_futures=True)

@@ -38,8 +38,11 @@ from languagegroundedsemseg_torch.sparse.graph_host import (
 )
 from languagegroundedsemseg_torch.sparse.offsets import ConvKind, KernelRegion
 from languagegroundedsemseg_torch.sparse.types import ConvGraph
+from languagegroundedsemseg_torch.utils.observability import span
 
 NUM_LEVELS = 5  # strides 1, 2, 4, 8, 16
+_ENC_SPANS = tuple(f"lgs.model.enc{e}" for e in range(1, 5))
+_DEC_SPANS = tuple(f"lgs.model.dec{d}" for d in range(1, 5))
 
 
 def res16unet_graph_spec(conv1_kernel_size: int = 3, d: int = 3) -> GraphSpec:
@@ -185,46 +188,52 @@ class Res16UNetBase(nn.Module):
                 representation_only: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, last decoder features); with ``representation_only``
-        the head is skipped and the features come back twice."""
-        masks = [graph.levels[l].mask() for l in range(NUM_LEVELS)]
-        bidx = [graph.levels[l].batch_idx if self._needs_batch_idx else None
-                for l in range(NUM_LEVELS)]
+        the head is skipped and the features come back twice. Each stage
+        runs under its span: ``lgs.model.stem``, ``.enc1``-``.enc4``,
+        ``.dec1``-``.dec4``, ``.head``."""
 
         def norm_relu(mod, x, lvl):
             return torch.relu(mod(x, masks[lvl], bidx[lvl]))
 
-        out = self.conv0p1s1(feats, graph)
-        out_p1 = norm_relu(self.bn0, out, 0)
+        with span("lgs.model.stem"):
+            masks = [graph.levels[l].mask() for l in range(NUM_LEVELS)]
+            bidx = [graph.levels[l].batch_idx if self._needs_batch_idx else None
+                    for l in range(NUM_LEVELS)]
+            out = self.conv0p1s1(feats, graph)
+            out_p1 = norm_relu(self.bn0, out, 0)
 
         skips = []
         out = out_p1
         for e in range(4):
             lvl = e + 1
-            out = getattr(self, f"conv{lvl}p{1 << e}s2")(out, graph)
-            out = norm_relu(getattr(self, f"bn{lvl}"), out, lvl)
-            for blk in getattr(self, f"block{lvl}"):
-                out = self._block(blk, out, graph, masks[lvl], bidx[lvl])
+            with span(_ENC_SPANS[e]):
+                out = getattr(self, f"conv{lvl}p{1 << e}s2")(out, graph)
+                out = norm_relu(getattr(self, f"bn{lvl}"), out, lvl)
+                for blk in getattr(self, f"block{lvl}"):
+                    out = self._block(blk, out, graph, masks[lvl], bidx[lvl])
             skips.append(out)
 
         dec_skips = [skips[2], skips[1], skips[0], out_p1]
         for d in range(4):
             lvl = 4 - d
-            out = getattr(self, f"convtr{4 + d}p{1 << lvl}s2")(out, graph)
-            out = norm_relu(getattr(self, f"bntr{4 + d}"), out, lvl - 1)
-            out = torch.cat([out, dec_skips[d]], dim=-1)
-            stage = getattr(self, f"block{5 + d}")
-            # representation output (and the CLIP variants): block8's last
-            # relu is stripped so raw features live in the embedding space
-            # (NoReluBlock)
-            strip = d == 3 and (self.STRIP_FINAL_RELU or representation_only)
-            for i, blk in enumerate(stage):
-                out = self._block(blk, out, graph, masks[lvl - 1], bidx[lvl - 1],
-                                  final_relu=not (strip and i == len(stage) - 1))
+            with span(_DEC_SPANS[d]):
+                out = getattr(self, f"convtr{4 + d}p{1 << lvl}s2")(out, graph)
+                out = norm_relu(getattr(self, f"bntr{4 + d}"), out, lvl - 1)
+                out = torch.cat([out, dec_skips[d]], dim=-1)
+                stage = getattr(self, f"block{5 + d}")
+                # representation output (and the CLIP variants): block8's
+                # last relu is stripped so raw features live in the
+                # embedding space (NoReluBlock)
+                strip = d == 3 and (self.STRIP_FINAL_RELU or representation_only)
+                for i, blk in enumerate(stage):
+                    out = self._block(blk, out, graph, masks[lvl - 1], bidx[lvl - 1],
+                                      final_relu=not (strip and i == len(stage) - 1))
 
         features = out
         if representation_only:
             return features, features
-        return self.final_head(features, graph, bidx[0], masks[0]), features
+        with span("lgs.model.head"):
+            return self.final_head(features, graph, bidx[0], masks[0]), features
 
 
 # ---- Variant zoo (reference models/res16unet.py:273-355) -------------------

@@ -53,10 +53,12 @@ from languagegroundedsemseg_torch.ops.spconv import (
     _wt,
 )
 from languagegroundedsemseg_torch.sparse.types import MaskedShiftMap
+from languagegroundedsemseg_torch.utils.observability import span
 
 # Launches of each kernel: a wrapper adds one where it launches its kernel
 # on the card and nowhere else (the CPU path runs the plain version).
 launch_counts = {"sel_fwd": 0, "csum": 0, "dw": 0}
+_KERNEL_SPANS = {k: f"lgs.kernel.{k}" for k in launch_counts}
 
 # sel_fwd's launch plan (csrc/sel_fwd.cu, checked against the kernel's own by
 # ``sel_config``): at most _SEL_THREADS threads a block, at most 64 registers
@@ -103,6 +105,26 @@ DW_PART_BYTES = 256 << 20
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def _launch(kernel: str, fn, dev, args) -> None:
+    """One launch of the hand-written ``kernel`` (a key of launch_counts):
+    ``fn(*args, stream)`` on ``dev``'s current stream, under the span
+    ``lgs.kernel.<kernel>``, counted once it is queued. The span's image
+    on the device's timeline covers the kernel, whatever it is named."""
+    with span(_KERNEL_SPANS[kernel]):
+        # the raw stream handle: torch.cuda.current_stream() builds a
+        # Stream object, which costs more host time than a small launch; so
+        # does entering the device's context, needed only when it is not
+        # current
+        if dev.index == torch.cuda.current_device():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    launch_counts[kernel] += 1
 
 
 def _check(t: torch.Tensor, name, dtype, shape=None, device=None):
@@ -241,21 +263,10 @@ def sel_fwd(wstart, anchors, mc, pall, n_cols, tile, win):
         if t.data_ptr() % 16:
             raise ValueError(f"sel_fwd: {name} is not 16-byte aligned")
     out = torch.empty((cap, c_run), dtype=torch.float32, device=dev)
-    # the raw stream handle: torch.cuda.current_stream() builds a Stream
-    # object, which costs more host time than a small launch; so does
-    # entering the device's context, needed only when it is not current
-    args = (wstart.data_ptr(), anchors.data_ptr(), mc.data_ptr(),
-            pall.data_ptr(), out.data_ptr(), cap, n_cols, c_run, tile, win,
-            rows, chunk, threads, smem)
-    fn = cuda_kernels.function("sel_fwd")
-    if dev.index == torch.cuda.current_device():
-        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"sel_fwd kernel launch failed: CUDA error {rc}")
-    launch_counts["sel_fwd"] += 1
+    _launch("sel_fwd", cuda_kernels.function("sel_fwd"), dev,
+            (wstart.data_ptr(), anchors.data_ptr(), mc.data_ptr(),
+             pall.data_ptr(), out.data_ptr(), cap, n_cols, c_run, tile, win,
+             rows, chunk, threads, smem))
     return out
 
 
@@ -391,16 +402,10 @@ def csum(wstart, parent_g, pall, cap_out, tile, win, n_groups):
     if pall.data_ptr() % 16:
         raise ValueError("csum: pall is not 16-byte aligned")
     out = torch.empty((cap_out, c_run), dtype=torch.float32, device=dev)
-    fn = cuda_kernels.function("csum")
-    with torch.cuda.device(dev):
-        # the raw stream handle: torch.cuda.current_stream() builds a Stream
-        # object, which costs more host time than this launch's kernel
-        rc = fn(wstart.data_ptr(), parent_g.data_ptr(), pall.data_ptr(),
-                out.data_ptr(), cap_in, cap_out, c_run, tile, win, n_groups,
-                chunk, smem, torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"csum kernel launch failed: CUDA error {rc}")
-    launch_counts["csum"] += 1
+    _launch("csum", cuda_kernels.function("csum"), dev,
+            (wstart.data_ptr(), parent_g.data_ptr(), pall.data_ptr(),
+             out.data_ptr(), cap_in, cap_out, c_run, tile, win, n_groups,
+             chunk, smem))
     return out
 
 
@@ -496,9 +501,7 @@ def dw_fused(inv_wstart, inv_anchors, t3b, g, tile, win):
     runs the plain version."""
     if g.device.type == "cpu":
         return dw_fused_reference(inv_wstart, inv_anchors, t3b, g, tile, win)
-    out = _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win, None)
-    launch_counts["dw"] += 1
-    return out
+    return _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win, None)
 
 
 # dw's ablation modes (csrc/dw.cu): the kernel, G rows read contiguously
@@ -544,17 +547,16 @@ def _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win, mode):
             g.data_ptr(), part.data_ptr(), out.data_ptr(), cap, cw_k, c_out,
             n_cols, tile, win, geo["rows_per_split"], n_split]
     if mode is None:
-        fn = cuda_kernels.function("dw")
+        _launch("dw", cuda_kernels.function("dw"), dev, args)
     else:
         fn = cuda_kernels.function(
             "dw", "lgs_dw_ablation",
             cuda_kernels.KERNELS["dw"][2][:-1] + [ctypes.c_int,
                                                    ctypes.c_void_p])
-        args.append(mode)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"dw kernel launch failed: CUDA error {rc}")
+        with torch.cuda.device(dev):
+            rc = fn(*args, mode, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"dw kernel launch failed: CUDA error {rc}")
     return out if cw_k == cw else out[:, :cw].contiguous()
 
 

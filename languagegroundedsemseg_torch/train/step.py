@@ -28,6 +28,7 @@ from languagegroundedsemseg_torch.parallel.collectives import (
 from languagegroundedsemseg_torch.parallel.dp import average_gradients
 from languagegroundedsemseg_torch.sparse.types import ConvGraph, leaf_to
 from languagegroundedsemseg_torch.train.state import TrainState
+from languagegroundedsemseg_torch.utils.observability import span
 
 # objective(*model outputs, batch, generator, row_mask) -> (loss, metrics):
 # (logits, features, ...) for the semantic models, (offsets, logits,
@@ -107,7 +108,13 @@ def make_train_step(model, optimizer, objective: Objective,
     first, then with the step, and after the backward the gradients, the
     loss and the metrics are averaged over the ranks; ``grad_norm`` reads
     the averaged gradients, as ``optax.global_norm`` reads JAX's after its
-    pmean. Every rank then makes the same update."""
+    pmean. Every rank then makes the same update.
+
+    Each call is a span ``lgs.step`` holding the consecutive phase spans
+    ``lgs.step.prep`` (the batch to the device, its inverse tiling, the
+    generators, the zeroed gradients), ``.forward``, ``.loss``,
+    ``.backward``, with a group ``.allreduce``, and ``.update`` (the
+    gradient norm, the optimizer, the metrics)."""
     dev = resolve_device(device)
     model = model.to(dev)
     data_parallel = group_size(group) > 1
@@ -115,42 +122,53 @@ def make_train_step(model, optimizer, objective: Objective,
 
     def step(state: TrainState, batch: "TrainBatch",
              generator: Optional[torch.Generator] = None):
-        batch = batch.to(dev).decompact()
-        # the selector convs' dW reads the inverse tiling: rebuild it once
-        # per map for this batch where the wire format left it out
-        batch = batch.replace(graph=with_inverse_anchors(batch.graph))
-        gen = generator
-        if gen is not None and data_parallel:
-            gen = fold_in(gen, rank)
-        gen = None if gen is None else fold_in(gen, state.step)
-        model.train()
-        # every parameter's gradient, also those the optimizer does not
-        # update (classifier_only), so grad_norm reads this step's only
-        model.zero_grad(set_to_none=True)
-        kw = {}
-        if gen is not None and getattr(model, "takes_generator", False):
-            # the CRF wrapper's coin (JAX: rngs={"crf": fold_in(key, 1)})
-            kw["generator"] = fold_in(gen, 1)
-        outputs = model(batch.feats, batch.graph,
-                        representation_only=representation_only, **kw)
-        row_mask = batch.graph.levels[0].mask()
-        loss, metrics = objective(*outputs, batch, gen, row_mask)
-        loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        if data_parallel:
-            average_gradients(grads, group)
-            reduced = all_reduce_mean(
-                {**{k: v.detach() for k, v in metrics.items()},
-                 "loss": loss.detach()}, group)
-            loss, metrics = reduced.pop("loss"), reduced
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        optimizer.step(lr_scale=state.lr_scale)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
-        metrics["grad_norm"] = grad_norm
-        return state, metrics
+        # consecutive phase spans inside lgs.step; the backward's work runs
+        # on autograd's own thread, so lgs.step.backward names the wait
+        with span("lgs.step"):
+            with span("lgs.step.prep"):
+                batch = batch.to(dev).decompact()
+                # the selector convs' dW reads the inverse tiling: rebuild
+                # it once per map for this batch where the wire format left
+                # it out
+                batch = batch.replace(graph=with_inverse_anchors(batch.graph))
+                gen = generator
+                if gen is not None and data_parallel:
+                    gen = fold_in(gen, rank)
+                gen = None if gen is None else fold_in(gen, state.step)
+                model.train()
+                # every parameter's gradient, also those the optimizer does
+                # not update (classifier_only), so grad_norm reads this
+                # step's only
+                model.zero_grad(set_to_none=True)
+                kw = {}
+                if gen is not None and getattr(model, "takes_generator", False):
+                    # the CRF wrapper's coin (JAX: rngs={"crf": fold_in(key, 1)})
+                    kw["generator"] = fold_in(gen, 1)
+            with span("lgs.step.forward"):
+                outputs = model(batch.feats, batch.graph,
+                                representation_only=representation_only, **kw)
+            with span("lgs.step.loss"):
+                row_mask = batch.graph.levels[0].mask()
+                loss, metrics = objective(*outputs, batch, gen, row_mask)
+            with span("lgs.step.backward"):
+                loss.backward()
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+            if data_parallel:
+                with span("lgs.step.allreduce"):
+                    average_gradients(grads, group)
+                    reduced = all_reduce_mean(
+                        {**{k: v.detach() for k, v in metrics.items()},
+                         "loss": loss.detach()}, group)
+                    loss, metrics = reduced.pop("loss"), reduced
+            with span("lgs.step.update"):
+                grad_norm = torch.linalg.vector_norm(
+                    torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+                optimizer.step(lr_scale=state.lr_scale)
+                state.step += 1
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics["loss"] = loss.detach()
+                metrics["grad_norm"] = grad_norm
+            return state, metrics
 
     return step
 

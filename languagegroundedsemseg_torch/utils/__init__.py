@@ -1,6 +1,6 @@
-"""Utilities: PLY IO, timers, host allocator tuning."""
+"""Utilities: PLY IO, running averages, host allocator tuning."""
 
 from languagegroundedsemseg_torch.utils.ply import read_ply, write_ply
-from languagegroundedsemseg_torch.utils.timer import Timer, AverageMeter
+from languagegroundedsemseg_torch.utils.timer import AverageMeter
 
-__all__ = ["read_ply", "write_ply", "Timer", "AverageMeter"]
+__all__ = ["read_ply", "write_ply", "AverageMeter"]

@@ -20,10 +20,17 @@ InstanceRes16UNet14A's eval forward and one train step on the card to the
 CPU's, and the point and cluster ops to the CPU's bit for bit; the zoo
 tests hold a narrowed Res16UNet50, MinkUNetHyper14INBN and a CRF-wrapped
 Res16UNet14A the same way, and the kernels at the widths Res16UNet50 adds.
+A traced train step shows one ``lgs.kernel.*`` span per launch, whose
+images on the device's timeline the benchmark's trace reader does not keep
+as device operations.
 """
 
+import collections
 import copy
+import importlib.util
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -1019,3 +1026,74 @@ def test_zoo_forward_and_train_step_on_card_match_cpu(name):
                   else 1e-4 * abs(want_loss))
     assert err <= out_limit, (err, out_noise)
     assert abs(loss - want_loss) <= loss_limit, (loss, want_loss)
+
+
+def _trace_reader():
+    """``benchmark/lgsb/trace.py``, the benchmark's reader of a profile."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "benchmark", "lgsb", "trace.py")
+    spec = importlib.util.spec_from_file_location("lgsb_trace", path)
+    mod = importlib.util.module_from_spec(spec)
+    # its dataclass looks its module up while the class is made
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_kernel_spans_match_launches_and_stay_off_the_device_ops():
+    """One Res16UNet14A train step on a 3,000-point scene at capacity
+    4,096, traced (CPU and CUDA activity): each kernel's ``lgs.kernel.*``
+    host ranges, on whichever thread launched it (the backward's on
+    autograd's), number its ``launch_counts`` increments; their images on
+    the device's timeline are there, and no device operation that
+    ``read_profile`` keeps carries an ``lgs.`` name, so the spans add
+    nothing to ``busy_s``."""
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.data.synthetic import voxelize_scene
+    from languagegroundedsemseg_torch.losses.classification import cross_entropy_loss
+    from languagegroundedsemseg_torch.models.res16unet import (
+        Res16UNet14A,
+        res16unet_graph_spec,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    dev = _card()
+    batch = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=4096).build(
+        [voxelize_scene(np.random.default_rng(0), 3000)], device=dev)
+    model = Res16UNet14A(out_channels=20, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    opt = sgd_torch(model.parameters(), 0.01)
+
+    def objective(logits, _f, b, _g, row_mask):
+        return cross_entropy_loss(logits, b.labels, 255, row_mask=row_mask), {}
+
+    step = make_train_step(model, opt, objective, device=dev)
+    state = TrainState(model, opt)
+    step(state, batch)  # builds or loads the kernels
+    torch.cuda.synchronize()
+    before = dict(oc.launch_counts)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("lgs.test.window"):
+            step(state, batch)
+            torch.cuda.synchronize()
+    launched = {k: oc.launch_counts[k] - n for k, n in before.items()}
+    events = list(prof.profiler.kineto_results.events())
+    on_host = collections.Counter(
+        e.name() for e in events
+        if e.device_type() != torch.autograd.DeviceType.CUDA)
+    images = collections.Counter(
+        e.name() for e in events
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and e.name().startswith("lgs."))
+    print(launched, images)  # shown by pytest -rP
+    assert launched["sel_fwd"] > 0 and launched["dw"] > 0
+    for k, n in launched.items():
+        assert on_host[f"lgs.kernel.{k}"] == n, k
+    assert images["lgs.kernel.sel_fwd"] > 0
+    tr = _trace_reader().read_profile(prof, "lgs.test.window")
+    assert tr.device and tr.busy_s() > 0
+    assert not [n for n, _, _ in tr.device if "lgs." in n]

@@ -136,7 +136,11 @@ def test_batches_equal_one_worker(cfg):
     for g, w in zip(got, want):
         assert g.feats.dtype == torch.uint8  # raw colors on the wire
         _assert_batches_equal(g, w)
-    assert pl.counters.snapshot() == jl.counters.snapshot()
+    # JAX's keys as JAX's; beside them only the port's time and copy means
+    snap, want = pl.counters.snapshot(), jl.counters.snapshot()
+    assert {k: snap[k] for k in want} == want
+    assert set(snap) - set(want) == {"loader_get_item_ms", "loader_build_ms",
+                                     "loader_wait_ms", "loader_h2d_mb"}
     assert pl.counters.level_num_sum == jl.counters.level_num_sum
 
 

@@ -142,10 +142,6 @@ def test_timer_meter_and_host_alloc():
         for v, c in ((1.0, 2), (4.0, 1), (2.5, 3)):
             m.update(v, c)
         meters.append(m.compute())
-        t = mod.Timer()
-        with t:
-            pass
-        assert t.calls == 1 and t.average_time >= 0.0
     assert meters[0] == meters[1]
     assert phost_alloc.tune() == jhost_alloc.tune()
 

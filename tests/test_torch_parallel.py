@@ -445,6 +445,45 @@ def _step_rank(rank, _out, shards, state_dict):
             for v in ("model", "relu_free")}
 
 
+
+def _spans_rank(rank, _out, shards):
+    """One data-parallel step of each rank under the profiler: the phase
+    spans on the thread that ran ``lgs.step``, in order."""
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.models.layers import convert_sync_batchnorm
+    from languagegroundedsemseg_torch.models.res16unet import (
+        Res16UNet14A,
+        res16unet_graph_spec,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    group = dist.group.WORLD
+    batch = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=2048).build(
+        shards[rank], device="cpu")
+    model = Res16UNet14A(out_channels=N_CLASSES, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    convert_sync_batchnorm(model, group)
+    opt = sgd_torch(model.parameters(), LR)
+    step = make_train_step(model, opt, _port_objective, device="cpu", group=group)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(TrainState(model, opt), batch)
+    ranges = sorted((e.start_ns(), e.name(), e.start_thread_id())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("lgs.step"))
+    (tid,) = [t for _, n, t in ranges if n == "lgs.step"]
+    return [n for _, n, t in ranges if t == tid and n != "lgs.step"]
+
+
+def test_dp_step_spans_the_allreduce_on_each_rank(tmp_path):
+    got = spawn(_spans_rank, tmp_path, _dryrun_shards())
+    assert got == [["lgs.step.prep", "lgs.step.forward", "lgs.step.loss",
+                    "lgs.step.backward", "lgs.step.allreduce",
+                    "lgs.step.update"]] * WORLD
+
+
 def _jax_shards(shards):
     """JAX's batch of each shard and random weights of Res16UNet14A."""
     from languagegroundedsemseg_tpu.data.batching import BatchBuilder

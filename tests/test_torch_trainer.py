@@ -286,6 +286,13 @@ def test_profiler_and_test_pass(tmp_path):
     tr.fit(max_epochs=1, max_steps_per_epoch=2)
     assert tr.profiler.captured
     assert glob.glob(os.path.join(tr.log_dir, "plugins", "profile", "*", "trace.json"))
+    # the step's spans in the trace; the loader's time means in the epoch's record
+    with open(tr.profiler.trace_path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"lgs.step", "lgs.step.forward", "lgs.step.backward", "lgs.model.enc1"} <= names
+    (epoch,) = _records(tr.log_dir, "epoch")
+    assert {"loader_get_item_ms", "loader_build_ms", "loader_wait_ms",
+            "loader_h2d_mb"} <= set(epoch)
     m = tr.test()
     assert 0.0 <= m["val_miou"] <= 1.0
 
