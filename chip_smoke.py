@@ -125,6 +125,10 @@ SEL_SHAPES = ((96, "l0.k3"), (32, "l0.k3"), (384, "l0.k3"), (256, "l4.k3"))
 ZOO_SEL_SHAPES = ((256, "l0.k3"),)
 ZOO_DW_SHAPES = ((768, 256, "l0.k3"),)
 ZOO_CSUM_WIDTHS = (1024,)
+# the batch norm's kernels in phase kernels: Res16UNet34C's level-0 norms at
+# the benchmark's capacity envelope (2,359,296 rows, 96 channels), the
+# level filled as the resident cell fills it (51%, valid rows first)
+BN_ROWS, BN_CHANNELS, BN_FILL = 2_359_296, 96, 0.51
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
@@ -678,7 +682,8 @@ def phase_kernels(graph, bw: float) -> dict:
     384 (block5's dX) on the L0 map and 256 on the L4 map (4,096 rows);
     csum at 32 / 96 (forward) and 256 (up-conv dX); dw at DW_SHAPES. Then
     the widths Res16UNet50 (phase zoo_path) adds: ZOO_SEL_SHAPES,
-    ZOO_CSUM_WIDTHS, ZOO_DW_SHAPES."""
+    ZOO_CSUM_WIDTHS, ZOO_DW_SHAPES; and the batch norm's four kernels at
+    BN_ROWS x BN_CHANNELS (``bn_records``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for c_run, map_name in SEL_SHAPES:
@@ -698,11 +703,94 @@ def phase_kernels(graph, bw: float) -> dict:
     for cw, c_out, map_name in ZOO_DW_SHAPES:
         results[("dw", "zoo", cw)] = dw_record(graph, cw, c_out, gen, map_name)
 
+    results.update(bn_records(gen))
+
     for key, rec in results.items():
         _bound(rec, bw)
         emit({"phase": "kernels", **rec,
               **({"shape_of": "zoo_path"} if "zoo" in key else {})})
     return results
+
+
+def bn_records(gen) -> dict:
+    """The batch norm's kernels (``ops/batch_norm.py``) at BN_ROWS x
+    BN_CHANNELS in f32, each held to its plain version on the card (f32,
+    another sum order: KERNEL_RTOL of max |ref|) and relaunched bit-equal,
+    then timed beside its plain version and the library's batch norm over
+    the valid rows (``native_batch_norm`` and its backward, which the port
+    never calls). ``bn_stats`` and ``bn_bwd_reduce`` include their combine
+    launch. Bytes: each (row, channel) the kernel reads or writes once
+    (``bn_stats`` and ``bn_bwd_apply`` read x on valid rows only), the
+    mask, and the per-block partials."""
+    from languagegroundedsemseg_torch.ops import batch_norm as bno
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+
+    rows, c, s = BN_ROWS, BN_CHANNELS, 4
+    n_valid = int(rows * BN_FILL)
+    x = torch.randn((rows, c), device="cuda", generator=gen) * 1.5 + 0.3
+    g = torch.randn((rows, c), device="cuda", generator=gen)
+    mask = (torch.arange(rows, device="cuda") < n_valid).float()
+    w = torch.rand(c, device="cuda", generator=gen) + 0.5
+    b = torch.randn(c, device="cuda", generator=gen)
+    rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+    geo = bno.bn_geometry(rows, c)
+    part = geo["grid"][0] * (2 * c + 1) * 4
+    packed = bno.bn_stats(x, mask)
+    _, stat = bno.bn_apply(x, packed, w, b, rm.clone(), rv.clone(), 1e-5, 0.02,
+                           bno.RECOMPUTE, torch.float32)
+    sums = bno.bn_bwd_reduce(g, x, stat)
+    xv, gv = x[:n_valid], g[:n_valid]
+    fwd = torch.ops.aten.native_batch_norm(xv, w, b, rm.clone(), rv.clone(),
+                                           True, 0.02, 1e-5)
+    lib_fwd = ("aten native_batch_norm over the valid rows: statistics and "
+               "output", lambda: torch.ops.aten.native_batch_norm(
+                   xv, w, b, rm.clone(), rv.clone(), True, 0.02, 1e-5))
+    lib_bwd = ("aten native_batch_norm_backward over the valid rows: dx and "
+               "both sums", lambda: torch.ops.aten.native_batch_norm_backward(
+                   gv, xv, w, rm, rv, fwd[1], fwd[2], True, 1e-5,
+                   [True, True, True]))
+    # name -> (kernel, plain version, bytes, library yardstick or None)
+    calls = {
+        "bn_stats": (lambda: bno.bn_stats(x, mask),
+                     lambda: bno.bn_stats_reference(x, mask),
+                     n_valid * c * s + rows * 4 + 2 * part, lib_fwd),
+        "bn_apply": (lambda: bno.bn_apply(x, packed, w, b, rm.clone(), rv.clone(),
+                                          1e-5, 0.02, bno.RECOMPUTE,
+                                          torch.float32)[0],
+                     lambda: bno.bn_apply_reference(
+                         x, packed, w, b, rm.clone(), rv.clone(), 1e-5, 0.02,
+                         bno.RECOMPUTE, torch.float32)[0],
+                     2 * rows * c * s, None),
+        "bn_bwd_reduce": (lambda: bno.bn_bwd_reduce(g, x, stat),
+                          lambda: bno.bn_bwd_reduce_reference(g, x, stat),
+                          2 * rows * c * s + 2 * part, lib_bwd),
+        "bn_bwd_apply": (lambda: bno.bn_bwd_apply(g, x, mask, w, stat, sums, True),
+                         lambda: bno.bn_bwd_apply_reference(g, x, mask, w, stat,
+                                                            sums, True),
+                         (2 * rows + n_valid) * c * s + rows * 4, None),
+    }
+    cfg = bno.bn_config(geo["threads"])
+    out = {}
+    for name, (kernel, plain, nbytes, library) in calls.items():
+        got = kernel()
+        err, scale = _hold(f"{name} rows={rows} c={c}", got, plain(), KERNEL_RTOL)
+        if not torch.equal(kernel(), got):
+            raise AssertionError(f"{name}: a second launch differs from the first")
+        rec = {"kernel": name, "rows": rows, "channels": c, "dtype": "float32",
+               "valid_rows": n_valid, "geometry": geo, "config": cfg,
+               "ptxas": cuda_kernels.ptxas_usage("bn", f"{name}_kernel"),
+               "max_abs_err": err, "max_abs_ref": scale,
+               "bit_equal_relaunch": True, "bytes": nbytes, "operations": 0,
+               "peak_ops_per_s": F32_OPS_PER_S,
+               "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+               "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+               "host_ms": host_ms(kernel, 5 * TIMED_KERNEL_RUNS),
+               "plain_ms": cuda_ms(plain, TIMED_KERNEL_RUNS)}
+        if library is not None:
+            rec["library_call"] = library[0]
+            rec["library_ms"] = cuda_ms(library[1], TIMED_KERNEL_RUNS)
+        out[(name, c)] = rec
+    return out
 
 
 def _bound(rec, bw: float) -> None:
@@ -1200,12 +1288,19 @@ def phase_train_path(batch) -> dict:
     warm-up, one step with launch accounting, TIMED_TRAIN_STEPS timed
     steps. Loss and grad norm finite on every step, BN statistics moved,
     and the last step's loss below the first's (the gradient's sign)."""
+    from languagegroundedsemseg_torch.models.layers import SparseBatchNorm
+    from languagegroundedsemseg_torch.ops import batch_norm as bno
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
 
     model = scaled_model("cuda")
     step, state = _train_setup(model)
     want = expected_launches(model, batch.graph, train=True)
+    # every norm's forward and backward: stats, combine, apply; reduce,
+    # combine, apply
+    norms = sum(isinstance(m, SparseBatchNorm) for m in model.modules())
+    want_bn = {"bn_stats": norms, "bn_combine": 2 * norms, "bn_apply": norms,
+               "bn_bwd_reduce": norms, "bn_bwd_apply": norms}
     stats0 = [b.clone() for b in model.buffers()]
     losses, norms, times = [], [], []
 
@@ -1223,11 +1318,16 @@ def phase_train_path(batch) -> dict:
     run()  # warm-up
     oc.reset_launch_counts()
     oa.reset_launch_counts()
+    bno.reset_launch_counts()
     run()
     launches = dict(oc.launch_counts)
     ablation_launches = dict(oa.launch_counts)
+    bn_launches = dict(bno.launch_counts)
     if launches != want:
         raise AssertionError(f"train-step launches {launches}, expected {want}")
+    if bn_launches != want_bn:
+        raise AssertionError(f"train-step batch norm launches {bn_launches}, "
+                             f"expected {want_bn}")
     if any(ablation_launches.values()):
         raise AssertionError(
             f"ablation kernels on the train step: {ablation_launches}")
@@ -1246,7 +1346,8 @@ def phase_train_path(batch) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "losses": losses, "grad_norms": norms, "steps": state.step,
            "bn_stats_moved": moved, "launches": launches,
-           "expected_launches": want, "ablation_launches": ablation_launches}
+           "expected_launches": want, "ablation_launches": ablation_launches,
+           "bn_launches": bn_launches}
     emit(rec)
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
@@ -3398,6 +3499,22 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
             "library_call": rec["library_call"]})
+    # the batch norm's kernels: replace no Pallas kernel (XLA fuses the
+    # norm); timed at Res16UNet34C's level-0 shape
+    for name in train["bn_launches"]:
+        if name == "bn_combine":
+            continue  # timed inside bn_stats and bn_bwd_reduce
+        rec = kernels[(name, BN_CHANNELS)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "languagegroundedsemseg_torch/csrc/bn.cu",
+            "replaces": "none: SparseBatchNorm's eager ops (models/layers.py)",
+            "launches": train["bn_launches"][name], "width": BN_CHANNELS,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec.get("library_ms"),
+            "library_call": rec.get("library_call")})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

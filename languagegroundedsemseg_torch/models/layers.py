@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from languagegroundedsemseg_torch.device import resolve_device
+from languagegroundedsemseg_torch.ops import batch_norm as bn_ops
 from languagegroundedsemseg_torch.ops.msconv import masked_shift_conv
 from languagegroundedsemseg_torch.ops.onehot_conv import (
     child_sum_conv,
@@ -155,7 +156,12 @@ class SparseBatchNorm(nn.Module):
     the ranks (JAX's psum over ``axis_name``, models/layers.py:161-164).
     Eval mode never syncs. Statistics in f32, the output in ``dtype``; in
     a checkpointed block's recompute (``recomputing``) the running
-    statistics are left as the first forward left them."""
+    statistics are left as the first forward left them.
+
+    On the card the norm is one autograd node on hand-written kernels
+    (``ops.batch_norm.sparse_batch_norm``, six launches a training forward
+    and backward); elsewhere it runs the eager arithmetic below, which the
+    kernels' plain versions repeat in closed form (``eager``)."""
 
     def __init__(self, channels: int, momentum: float = 0.02,
                  eps: float = 1e-5, device="cuda", process_group=None,
@@ -171,6 +177,19 @@ class SparseBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels, device=dev))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            mode = (bn_ops.EVAL if not self.training
+                    else bn_ops.RECOMPUTE if getattr(_RECOMPUTE, "on", False)
+                    else bn_ops.TRAIN)
+            return bn_ops.sparse_batch_norm(
+                x, mask, self.weight, self.bias, self.running_mean,
+                self.running_var, eps=self.eps, momentum=self.momentum,
+                mode=mode, group=self.process_group, out_dtype=self.dtype)
+        return self.eager(x, mask)
+
+    def eager(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The norm as eager ops on any device: the CPU's path, and the
+        arithmetic the kernels' plain versions repeat."""
         xf = x.to(torch.float32)
         if self.training:
             m = mask.to(torch.float32)[:, None]

@@ -19,7 +19,10 @@ import subprocess
 import threading
 from typing import Dict
 
+import torch
+
 from languagegroundedsemseg_torch import BUILD_DIR
+from languagegroundedsemseg_torch.utils.observability import span
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "csrc")
@@ -38,6 +41,7 @@ KERNELS = {
                     [_vp] * 6 + [_i] * 6 + [_vp]),
     "onehot_variants": ("onehot_variants.cu", "lgs_onehot_variants",
                         [_vp] * 5 + [_i] * 9 + [_vp]),
+    "bn": ("bn.cu", "lgs_bn_stats", [_vp] * 3 + [_i] * 7 + [_vp]),
 }
 
 _lock = threading.Lock()
@@ -151,3 +155,24 @@ def ptxas_usage(name: str, entry: str) -> dict:
             usage["static_smem_bytes"] = int(smem.group(1)) if smem else 0
             inside = False
     return usage
+
+
+def launch(counts: Dict[str, int], kernel: str, fn, dev, args) -> None:
+    """One launch of the hand-written ``kernel`` (a key of ``counts``, the
+    calling module's launch counter): ``fn(*args, stream)`` on ``dev``'s
+    current stream, under the span ``lgs.kernel.<kernel>``, counted once it
+    is queued. The span's image on the device's timeline covers the kernel,
+    whatever it is named."""
+    with span(f"lgs.kernel.{kernel}"):
+        # the raw stream handle: torch.cuda.current_stream() builds a
+        # Stream object, which costs more host time than a small launch; so
+        # does entering the device's context, needed only when it is not
+        # current
+        if dev.index == torch.cuda.current_device():
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    counts[kernel] += 1

@@ -53,12 +53,10 @@ from languagegroundedsemseg_torch.ops.spconv import (
     _wt,
 )
 from languagegroundedsemseg_torch.sparse.types import MaskedShiftMap
-from languagegroundedsemseg_torch.utils.observability import span
 
 # Launches of each kernel: a wrapper adds one where it launches its kernel
 # on the card and nowhere else (the CPU path runs the plain version).
 launch_counts = {"sel_fwd": 0, "csum": 0, "dw": 0}
-_KERNEL_SPANS = {k: f"lgs.kernel.{k}" for k in launch_counts}
 
 # sel_fwd's launch plan (csrc/sel_fwd.cu, checked against the kernel's own by
 # ``sel_config``): at most _SEL_THREADS threads a block, at most 64 registers
@@ -105,26 +103,6 @@ DW_PART_BYTES = 256 << 20
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-
-
-def _launch(kernel: str, fn, dev, args) -> None:
-    """One launch of the hand-written ``kernel`` (a key of launch_counts):
-    ``fn(*args, stream)`` on ``dev``'s current stream, under the span
-    ``lgs.kernel.<kernel>``, counted once it is queued. The span's image
-    on the device's timeline covers the kernel, whatever it is named."""
-    with span(_KERNEL_SPANS[kernel]):
-        # the raw stream handle: torch.cuda.current_stream() builds a
-        # Stream object, which costs more host time than a small launch; so
-        # does entering the device's context, needed only when it is not
-        # current
-        if dev.index == torch.cuda.current_device():
-            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-        else:
-            with torch.cuda.device(dev):
-                rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
-    launch_counts[kernel] += 1
 
 
 def _check(t: torch.Tensor, name, dtype, shape=None, device=None):
@@ -263,10 +241,11 @@ def sel_fwd(wstart, anchors, mc, pall, n_cols, tile, win):
         if t.data_ptr() % 16:
             raise ValueError(f"sel_fwd: {name} is not 16-byte aligned")
     out = torch.empty((cap, c_run), dtype=torch.float32, device=dev)
-    _launch("sel_fwd", cuda_kernels.function("sel_fwd"), dev,
-            (wstart.data_ptr(), anchors.data_ptr(), mc.data_ptr(),
-             pall.data_ptr(), out.data_ptr(), cap, n_cols, c_run, tile, win,
-             rows, chunk, threads, smem))
+    cuda_kernels.launch(
+        launch_counts, "sel_fwd", cuda_kernels.function("sel_fwd"), dev,
+        (wstart.data_ptr(), anchors.data_ptr(), mc.data_ptr(),
+         pall.data_ptr(), out.data_ptr(), cap, n_cols, c_run, tile, win,
+         rows, chunk, threads, smem))
     return out
 
 
@@ -402,10 +381,11 @@ def csum(wstart, parent_g, pall, cap_out, tile, win, n_groups):
     if pall.data_ptr() % 16:
         raise ValueError("csum: pall is not 16-byte aligned")
     out = torch.empty((cap_out, c_run), dtype=torch.float32, device=dev)
-    _launch("csum", cuda_kernels.function("csum"), dev,
-            (wstart.data_ptr(), parent_g.data_ptr(), pall.data_ptr(),
-             out.data_ptr(), cap_in, cap_out, c_run, tile, win, n_groups,
-             chunk, smem))
+    cuda_kernels.launch(
+        launch_counts, "csum", cuda_kernels.function("csum"), dev,
+        (wstart.data_ptr(), parent_g.data_ptr(), pall.data_ptr(),
+         out.data_ptr(), cap_in, cap_out, c_run, tile, win, n_groups,
+         chunk, smem))
     return out
 
 
@@ -547,7 +527,8 @@ def _dw_launch(inv_wstart, inv_anchors, t3b, g, tile, win, mode):
             g.data_ptr(), part.data_ptr(), out.data_ptr(), cap, cw_k, c_out,
             n_cols, tile, win, geo["rows_per_split"], n_split]
     if mode is None:
-        _launch("dw", cuda_kernels.function("dw"), dev, args)
+        cuda_kernels.launch(launch_counts, "dw", cuda_kernels.function("dw"),
+                            dev, args)
     else:
         fn = cuda_kernels.function(
             "dw", "lgs_dw_ablation",

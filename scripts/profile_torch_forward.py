@@ -34,6 +34,8 @@ CATEGORIES = (
     ("sel_fwd", ("sel_fwd_kernel",)),
     ("csum", ("csum_kernel",)),
     ("dw", ("dw_kernel", "dw_reduce_kernel")),
+    ("batch_norm", ("bn_stats_kernel", "bn_combine_kernel", "bn_apply_kernel",
+                    "bn_bwd_reduce_kernel", "bn_bwd_apply_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "splitK")),
     ("gather_scatter", ("index", "gather", "scatter", "roll")),
     ("elementwise", ("elementwise", "vectorized", "reduce", "cat")),

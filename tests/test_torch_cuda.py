@@ -22,7 +22,13 @@ tests hold a narrowed Res16UNet50, MinkUNetHyper14INBN and a CRF-wrapped
 Res16UNet14A the same way, and the kernels at the widths Res16UNet50 adds.
 A traced train step shows one ``lgs.kernel.*`` span per launch, whose
 images on the device's timeline the benchmark's trace reader does not keep
-as device operations.
+as device operations. The batch norm's kernels (``ops/batch_norm.py``) are
+held to their plain versions computed in float64 at the 34C step's level-0
+and level-4 shapes, f32 and bf16: sums and f32 outputs to 1e-5 of their
+scale (f32 sums over up to 2.4M rows in another order), bf16 outputs to one
+bf16 unit; a second launch bit-equal; one 34C train step takes 62 x 6 of
+their launches; and SyncBN on two gloo ranks of one card equals the eager
+norm on the same card.
 """
 
 import collections
@@ -36,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from languagegroundedsemseg_torch.ops import batch_norm as bno
 from languagegroundedsemseg_torch.ops import onehot_ablation as oa
 from languagegroundedsemseg_torch.ops import onehot_conv as oc
 from languagegroundedsemseg_torch.sparse import graph_host as gh
@@ -1075,12 +1082,14 @@ def test_kernel_spans_match_launches_and_stay_off_the_device_ops():
     step(state, batch)  # builds or loads the kernels
     torch.cuda.synchronize()
     before = dict(oc.launch_counts)
+    before_bn = dict(bno.launch_counts)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function("lgs.test.window"):
             step(state, batch)
             torch.cuda.synchronize()
     launched = {k: oc.launch_counts[k] - n for k, n in before.items()}
+    launched.update({k: bno.launch_counts[k] - n for k, n in before_bn.items()})
     events = list(prof.profiler.kineto_results.events())
     on_host = collections.Counter(
         e.name() for e in events
@@ -1091,9 +1100,183 @@ def test_kernel_spans_match_launches_and_stay_off_the_device_ops():
         and e.name().startswith("lgs."))
     print(launched, images)  # shown by pytest -rP
     assert launched["sel_fwd"] > 0 and launched["dw"] > 0
+    assert launched["bn_stats"] > 0 and launched["bn_bwd_apply"] > 0
     for k, n in launched.items():
         assert on_host[f"lgs.kernel.{k}"] == n, k
-    assert images["lgs.kernel.sel_fwd"] > 0
+    assert images["lgs.kernel.sel_fwd"] > 0 and images["lgs.kernel.bn_apply"] > 0
     tr = _trace_reader().read_profile(prof, "lgs.test.window")
     assert tr.device and tr.busy_s() > 0
     assert not [n for n, _, _ in tr.device if "lgs." in n]
+
+
+# ---- the batch norm's kernels ------------------------------------------------
+
+BN_SHAPES = [(2359296, 96), (13312, 256), (13312, 100), (4099, 7)]
+BF16_UNIT = 2.0 ** -8
+
+
+def _bn_inputs(rows, c, dtype, dev, seed=0):
+    """x with per-channel offsets and scales, a mask of ~51% valid rows
+    spread over the rows (sentinels and padding interleaved), a cotangent
+    nonzero on every row, the parameters and running statistics."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = torch.rand(c, device=dev, generator=gen) * 2.5 + 0.5
+    shift = torch.randn(c, device=dev, generator=gen)
+    x = (torch.randn((rows, c), device=dev, generator=gen) * scale + shift).to(dtype)
+    mask = (torch.rand(rows, device=dev, generator=gen) < 0.51).float()
+    g = torch.randn((rows, c), device=dev, generator=gen).to(dtype)
+    w = torch.rand(c, device=dev, generator=gen) + 0.5
+    b = torch.randn(c, device=dev, generator=gen)
+    rm = 0.1 * torch.randn(c, device=dev, generator=gen)
+    rv = torch.rand(c, device=dev, generator=gen) * 0.8 + 0.6
+    return x, mask, g, w, b, rm, rv
+
+
+def _gap(got, want, scale):
+    """Largest gap over the largest scale, in float64."""
+    return float((got.double() - want).abs().max() / scale.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", BN_SHAPES)
+def test_bn_kernels_match_plain_versions(rows, c, dtype):
+    """Each kernel against its plain version in float64 on the same inputs,
+    and a second launch bit-equal to the first."""
+    dev = _card()
+    x, mask, g, w, b, rm, rv = _bn_inputs(rows, c, dtype, dev)
+    xd, gd, md = x.double(), g.double(), mask.double()
+    n0 = dict(bno.launch_counts)
+    packed = bno.bn_stats(x, mask)
+    assert bno.launch_counts["bn_stats"] == n0["bn_stats"] + 1
+    assert bno.launch_counts["bn_combine"] == n0["bn_combine"] + 1
+    want = bno.bn_stats_reference(xd, md)
+    assert float(packed[0]) == float(want[0]) == float(mask.sum())
+    m = md[:, None]
+    assert _gap(packed[1:c + 1], want[1:c + 1], (xd.abs() * m).sum(0)) <= RTOL
+    assert _gap(packed[c + 1:], want[c + 1:], want[c + 1:]) <= RTOL
+    assert torch.equal(bno.bn_stats(x, mask), packed)
+
+    out_tol = RTOL if dtype == torch.float32 else BF16_UNIT
+    for mode in (bno.TRAIN, bno.EVAL):
+        rm_k, rv_k, rm_r, rv_r = rm.clone(), rv.clone(), rm.double(), rv.double()
+        y, stat = bno.bn_apply(x, packed, w, b, rm_k, rv_k, 1e-5, 0.02, mode, dtype)
+        y_r, stat_r = bno.bn_apply_reference(xd, packed.double(), w.double(),
+                                             b.double(), rm_r, rv_r, 1e-5, 0.02,
+                                             mode, torch.float64)
+        assert y.dtype == dtype and _gap(y, y_r, y_r) <= out_tol, mode
+        assert _gap(stat, stat_r, stat_r) <= RTOL, mode
+        assert _gap(rm_k, rm_r, rm_r) <= RTOL and _gap(rv_k, rv_r, rv_r) <= RTOL
+        y2, stat2 = bno.bn_apply(x, packed, w, b, rm.clone(), rv.clone(), 1e-5,
+                                 0.02, mode, dtype)
+        assert torch.equal(y2, y) and torch.equal(stat2, stat)
+
+    _, stat = bno.bn_apply(x, packed, w, b, rm.clone(), rv.clone(), 1e-5, 0.02,
+                           bno.RECOMPUTE, dtype)
+    sums = bno.bn_bwd_reduce(g, x, stat)
+    sd = stat.double()
+    want = bno.bn_bwd_reduce_reference(gd, xd, sd)
+    xhat = (xd - sd[:c]) * sd[c:2 * c]
+    assert _gap(sums[:c], want[:c], gd.abs().sum(0)) <= RTOL
+    assert _gap(sums[c:], want[c:], (gd * xhat).abs().sum(0)) <= RTOL
+    assert torch.equal(bno.bn_bwd_reduce(g, x, stat), sums)
+    for train in (True, False):
+        dx = bno.bn_bwd_apply(g, x, mask, w, stat, sums, train)
+        dx_r = bno.bn_bwd_apply_reference(gd, xd, md, w.double(), sd,
+                                          sums.double(), train)
+        assert dx.dtype == dtype and _gap(dx, dx_r, dx_r) <= out_tol, train
+        assert torch.equal(bno.bn_bwd_apply(g, x, mask, w, stat, sums, train), dx)
+
+
+@pytest.mark.cuda
+def test_bn_config_matches_plan():
+    _card()
+    geo = bno.bn_geometry(2359296, 96)
+    cfg = bno.bn_config(geo["threads"])
+    assert cfg["stats_blocks_per_sm"] >= 4 and cfg["apply_blocks_per_sm"] >= 4
+
+
+@pytest.mark.cuda
+def test_bn_launches_of_a_34c_train_step():
+    """One Res16UNet34C train step on the card: every one of its 62 norms
+    takes the six launches of the kernels, and nothing else launches them."""
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.data.synthetic import voxelize_scene
+    from languagegroundedsemseg_torch.losses.classification import cross_entropy_loss
+    from languagegroundedsemseg_torch.models.res16unet import (
+        Res16UNet34C,
+        res16unet_graph_spec,
+    )
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    dev = _card()
+    batch = BatchBuilder(spec=res16unet_graph_spec(), fixed_capacity=4096).build(
+        [voxelize_scene(np.random.default_rng(0), 3000)], device=dev)
+    model = Res16UNet34C(out_channels=20, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    opt = sgd_torch(model.parameters(), 0.01)
+
+    def objective(logits, _f, b, _g, row_mask):
+        return cross_entropy_loss(logits, b.labels, 255, row_mask=row_mask), {}
+
+    step = make_train_step(model, opt, objective, device=dev)
+    bno.reset_launch_counts()
+    step(TrainState(model, opt), batch)
+    torch.cuda.synchronize()
+    per = {"bn_stats": 1, "bn_combine": 2, "bn_apply": 1, "bn_bwd_reduce": 1,
+           "bn_bwd_apply": 1}
+    assert sum(per.values()) == bno.LAUNCHES_PER_TRAIN_NORM
+    assert bno.launch_counts == {k: 62 * v for k, v in per.items()}
+    assert set(oc.launch_counts) == {"sel_fwd", "csum", "dw"}
+
+
+def _bn_sync_rank(rank, _out, data):
+    """Both ranks on cuda:0, one gloo group: SyncBN through the kernels
+    and through the eager ops on the same card."""
+    import torch.distributed as dist
+
+    from languagegroundedsemseg_torch.models.layers import SparseBatchNorm
+
+    x, mask, cot, scale, bias = data
+    out = {}
+    for path in ("kernels", "eager"):
+        bn = SparseBatchNorm(x.shape[-1], device="cuda:0",
+                             process_group=dist.group.WORLD)
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(scale))
+            bn.bias.copy_(torch.from_numpy(bias))
+        xt = torch.from_numpy(x[rank]).cuda().requires_grad_(True)
+        mt = torch.from_numpy(mask[rank]).cuda()
+        launches = sum(bno.launch_counts.values())
+        y = bn(xt, mt) if path == "kernels" else bn.eager(xt, mt)
+        (y * torch.from_numpy(cot[rank]).cuda()).sum().backward()
+        torch.cuda.synchronize()
+        out[path] = {"y": y.detach().cpu(), "dx": xt.grad.cpu(),
+                     "dw": bn.weight.grad.cpu(), "db": bn.bias.grad.cpu(),
+                     "mean": bn.running_mean.cpu(), "var": bn.running_var.cpu(),
+                     "launches": sum(bno.launch_counts.values()) - launches}
+    return out
+
+
+@pytest.mark.cuda
+def test_sync_bn_on_two_ranks_matches_the_eager_norm(tmp_path):
+    """Two gloo ranks on cuda:0 whose valid counts differ: the kernels'
+    SyncBN (statistics and the backward's sums all-reduced, d(weight) and
+    d(bias) each rank's own) against the eager SyncBN on the same card,
+    within 1e-5 of each quantity's scale."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from test_torch_parallel import _bn_data, spawn
+
+    _card()
+    cuda_kernels.build()  # once, before the ranks load the libraries
+    got = spawn(_bn_sync_rank, tmp_path, _bn_data(n=300, c=100))
+    for g in got:
+        assert g["kernels"]["launches"] == bno.LAUNCHES_PER_TRAIN_NORM
+        assert g["eager"]["launches"] == 0
+        for name, want in g["eager"].items():
+            if name != "launches":
+                assert _rel(g["kernels"][name], want) <= RTOL, name
+    assert not torch.equal(got[0]["kernels"]["dw"], got[1]["kernels"]["dw"])
+    assert torch.equal(got[0]["kernels"]["mean"], got[1]["kernels"]["mean"])
