@@ -129,6 +129,10 @@ ZOO_CSUM_WIDTHS = (1024,)
 # the benchmark's capacity envelope (2,359,296 rows, 96 channels), the
 # level filled as the resident cell fills it (51%, valid rows first)
 BN_ROWS, BN_CHANNELS, BN_FILL = 2_359_296, 96, 0.51
+# the contrastive loss's node at the res16unet34d_lg.resident cell's level 0:
+# its capacity envelope's rows and fill, the decoder's width (3 negatives, 200
+# anchors)
+CONTRAST_ROWS, CONTRAST_DIM, CONTRAST_FILL = 917_504, 512, 0.67
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
@@ -683,7 +687,8 @@ def phase_kernels(graph, bw: float) -> dict:
     csum at 32 / 96 (forward) and 256 (up-conv dX); dw at DW_SHAPES. Then
     the widths Res16UNet50 (phase zoo_path) adds: ZOO_SEL_SHAPES,
     ZOO_CSUM_WIDTHS, ZOO_DW_SHAPES; and the batch norm's four kernels at
-    BN_ROWS x BN_CHANNELS (``bn_records``)."""
+    BN_ROWS x BN_CHANNELS (``bn_records``); the contrastive loss's two
+    kernels at CONTRAST_ROWS x CONTRAST_DIM (``contrast_records``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for c_run, map_name in SEL_SHAPES:
@@ -704,6 +709,7 @@ def phase_kernels(graph, bw: float) -> dict:
         results[("dw", "zoo", cw)] = dw_record(graph, cw, c_out, gen, map_name)
 
     results.update(bn_records(gen))
+    results.update(contrast_records(gen))
 
     for key, rec in results.items():
         _bound(rec, bw)
@@ -790,6 +796,111 @@ def bn_records(gen) -> dict:
             rec["library_call"] = library[0]
             rec["library_ms"] = cuda_ms(library[1], TIMED_KERNEL_RUNS)
         out[(name, c)] = rec
+    return out
+
+
+def contrast_records(gen) -> dict:
+    """The contrastive loss's kernels (``ops/contrastive.py``) at
+    CONTRAST_ROWS x CONTRAST_DIM in f32, 3 negatives, 200 unit anchors,
+    CONTRAST_FILL of the rows real (the rest padding, label 255), each held
+    to its plain version on the card (f32, another sum order: KERNEL_RTOL
+    of max |ref|) and relaunched bit-equal, then timed beside its plain
+    version; then the node's forward and backward through autograd
+    (``contrast_step``) beside the eager loss it replaces on the card
+    (``contrastive_language_loss``'s eager arithmetic), with the memory
+    each adds to the peak. Bytes: f read once by the forward, read again
+    and df written by the backward; the labels, negatives, mask and per-row
+    values."""
+    from unittest import mock
+
+    from languagegroundedsemseg_torch.losses import contrastive as lcn
+    from languagegroundedsemseg_torch.ops import contrastive as ocn
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+
+    rows, d, s, classes = CONTRAST_ROWS, CONTRAST_DIM, 3, 200
+    a = torch.randn((classes, d), device="cuda", generator=gen)
+    unit = a / torch.linalg.vector_norm(a, dim=1, keepdim=True)
+    real = torch.arange(rows, device="cuda") < int(rows * CONTRAST_FILL)
+    labels = torch.randint(0, classes, (rows,), device="cuda", generator=gen)
+    labels = torch.where(real, labels, torch.full_like(labels, 255)).to(torch.int32)
+    row_mask = real.float()
+    negatives = lcn.sample_negatives(gen, labels.long().clamp(0, classes - 1),
+                                     classes, s)
+    f = (0.8 * unit[labels.long().clamp(0, classes - 1)]
+         + 0.5 * torch.randn((rows, d), device="cuda", generator=gen))
+    gp = torch.full((rows,), 1.0 / rows, device="cuda")
+    gn = gp.clone()
+    pos, negl, stat = ocn.contrast_fwd(f, labels, row_mask, negatives, unit, 255,
+                                       0.0, 0.6)
+    per_row = rows * (4 + 8 * s + 4)  # labels, negatives, mask or cotangent
+    geo = ocn.contrast_geometry(rows, d, s, classes)
+    calls = {
+        "contrast_fwd": (
+            lambda: ocn.contrast_fwd(f, labels, row_mask, negatives, unit, 255,
+                                     0.0, 0.6),
+            lambda: ocn.contrast_fwd_reference(f, labels, row_mask, negatives,
+                                               unit, 255, 0.0, 0.6),
+            rows * d * 4 + per_row + rows * 20),
+        "contrast_bwd": (
+            lambda: (ocn.contrast_bwd(f, labels, negatives, unit, stat, pos,
+                                      negl, gp, gn),),
+            lambda: (ocn.contrast_bwd_reference(f, labels, negatives, unit, stat,
+                                                pos, negl, gp, gn),),
+            rows * d * 8 + per_row + rows * 24),
+    }
+    out = {}
+    for name, (kernel, plain, nbytes) in calls.items():
+        got = kernel()
+        for k, (g, w) in enumerate(zip(got, plain())):
+            _hold(f"{name}[{k}] rows={rows} d={d}", g, w, KERNEL_RTOL)
+        if not all(torch.equal(x, y) for x, y in zip(kernel(), got)):
+            raise AssertionError(f"{name}: a second launch differs from the first")
+        out[(name, d)] = {
+            "kernel": name, "rows": rows, "channels": d, "negatives": s,
+            "classes": classes, "dtype": "float32", "valid_rows": int(real.sum()),
+            "geometry": geo,
+            "ptxas": cuda_kernels.ptxas_usage("contrast", f"{name}_kernel"),
+            "bit_equal_relaunch": True, "bytes": nbytes, "operations": 0,
+            "peak_ops_per_s": F32_OPS_PER_S,
+            "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+            "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+            "host_ms": host_ms(kernel, 5 * TIMED_KERNEL_RUNS),
+            "plain_ms": cuda_ms(plain, TIMED_KERNEL_RUNS)}
+    del pos, negl, stat
+
+    def step(node: bool):
+        with mock.patch.object(lcn, "_takes_node", lambda *args: node):
+            x = f.detach().requires_grad_(True)
+            loss, _, _ = lcn.contrastive_language_loss(
+                None, x, labels, unit[:, None, :], row_mask=row_mask,
+                negatives=negatives)
+            loss.backward()
+            return x.grad
+
+    def extra_gib(node: bool) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(node)
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    g_node, g_eager = step(True), step(False)
+    err, scale = _hold(f"contrast_step rows={rows} d={d}", g_node, g_eager,
+                       KERNEL_RTOL)
+    out[("contrast_step", d)] = {
+        "kernel": "contrast_step", "rows": rows, "channels": d, "negatives": s,
+        "what": "the node's forward and backward through autograd, the loss "
+                "and df; library: the eager loss's, on the card",
+        "max_abs_err_vs_eager": err, "max_abs_ref": scale,
+        "bytes": sum(c[2] for c in calls.values()), "operations": 0,
+        "peak_ops_per_s": F32_OPS_PER_S,
+        "ms": cuda_ms(lambda: step(True), TIMED_FWD_RUNS),
+        "peak_extra_gib": extra_gib(True),
+        "library_call": "contrastive_language_loss's eager arithmetic, "
+                        "forward and backward",
+        "library_ms": cuda_ms(lambda: step(False), TIMED_FWD_RUNS),
+        "library_peak_extra_gib": extra_gib(False)}
     return out
 
 
@@ -1730,7 +1841,7 @@ def _recording_trainer():
             super().__init__(*args, **kwargs)
             RecordingTrainer.instances.append(self)
             self.want = {"sel_fwd": 0, "csum": 0, "dw": 0}
-            self.n_train = self.n_eval = 0
+            self.n_train = self.n_eval = self.n_eval_metrics = 0
             self.losses, self.step_s, self.val_s, self.coins = [], [], [], []
             self._mark = None
             train, evaluate, save = self.p_train_step, self.p_eval_step, self.ckpt.save
@@ -1771,6 +1882,10 @@ def _recording_trainer():
             crf = getattr(self.model, "crf", None)
             self.crf0 = (None if crf is None
                          else crf.compatibility.detach().clone())
+
+        def _eval_metrics_fn(self, *args, **kwargs):
+            self.n_eval_metrics += 1
+            return super()._eval_metrics_fn(*args, **kwargs)
 
         def validate(self, *args, **kwargs):
             t0 = time.perf_counter()
@@ -1820,12 +1935,15 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
                  patches: tuple = (), extra=None) -> dict:
     """One ``cli.main.main(argv)`` on the card with every launch count set
     to 0 just before it, checked just after against the launches of every
-    train step and eval forward it ran. ``argv`` trains to epoch
+    train step and eval forward it ran (the contrastive loss's node: one
+    forward and one backward a representation train step, one forward a
+    validation batch's loss, none in another mode). ``argv`` trains to epoch
     ``epochs``: the state must end at ``epochs`` x len(train_loader)
     steps, with a record for each epoch this run trained. ``keep_state``
     adds the final state dict (on the CPU) under ``"state"``; ``patches``
     are entered around the run; ``extra(trainer)`` adds its fields."""
     from languagegroundedsemseg_torch.cli.main import main as cli_main
+    from languagegroundedsemseg_torch.ops import contrastive as ocn
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
     from languagegroundedsemseg_torch.train import trainer as trainer_mod
@@ -1840,6 +1958,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
     torch.cuda.reset_peak_memory_stats()
     oc.reset_launch_counts()
     oa.reset_launch_counts()
+    ocn.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
         for p in patches:
@@ -1848,6 +1967,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches, ablation = dict(oc.launch_counts), dict(oa.launch_counts)
+    contrast = dict(ocn.launch_counts)
     (tr,) = recording.instances
     log_dir = tr.log_dir
     per_epoch = len(tr.train_loader)
@@ -1863,6 +1983,13 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
                              f"({tr.n_train} train steps, {tr.n_eval} eval forwards)")
     if min(launches.values()) == 0 or any(ablation.values()):
         raise AssertionError(f"{name}: launches {launches}, ablation {ablation}")
+    node = tr.mode == "representation"
+    want_contrast = {"contrast_fwd": tr.n_train + tr.n_eval_metrics if node else 0,
+                     "contrast_bwd": tr.n_train if node else 0}
+    if contrast != want_contrast:
+        raise AssertionError(f"{name}: contrastive launches {contrast}, expected "
+                             f"{want_contrast} ({tr.n_train} train steps, "
+                             f"{tr.n_eval_metrics} validation losses)")
     if tr.state.step != want_step:
         raise AssertionError(f"{name}: step {tr.state.step}, expected {want_step}")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
@@ -1903,7 +2030,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
             "test_metrics": {k: test_metrics[k] for k in ("val_miou", "val_loss")},
             "checkpoints": [f for f in files if f.endswith(".ckpt")],
             "launches": launches, "expected_launches": tr.want,
-            "ablation_launches": ablation,
+            "ablation_launches": ablation, "contrast_launches": contrast,
             **({"resumed": resumed} if resumed is not None else {}),
             **(extra(tr) if extra is not None else {}),
             **({"state": {k: v.detach().cpu().clone()
@@ -1924,7 +2051,8 @@ def phase_trainer_path() -> dict:
     reference's scripts/text_representation_train.sh pairs the two);
     (c) ``--resume`` of (a) one epoch further, its restored
     tensors held equal to the checkpoint's. Each run's launches equal the
-    sum over its train steps and eval forwards of ``expected_launches``."""
+    sum over its train steps and eval forwards of ``expected_launches``;
+    (b)'s contrastive loss takes the node of ``ops/contrastive.py``."""
     with tempfile.TemporaryDirectory(prefix="lgs_trainer_path_") as tmp:
         a_dir, b_dir, c_dir = (os.path.join(tmp, n) for n in "abc")
         n = TRAINER_EPOCHS
@@ -1947,7 +2075,9 @@ def phase_trainer_path() -> dict:
     rec = {"phase": "trainer_path", "argv": LEARNING_CURVE_ARGV, "runs": runs,
            "launches": totals,
            "ablation_launches": {k: sum(r["ablation_launches"][k] for r in runs)
-                                 for k in runs[0]["ablation_launches"]}}
+                                 for k in runs[0]["ablation_launches"]},
+           "contrast_launches": {k: sum(r["contrast_launches"][k] for r in runs)
+                                 for k in runs[0]["contrast_launches"]}}
     emit(rec)
     rec["baseline_state"] = baseline_state  # for phase ddp_path; not printed
     return rec
@@ -3515,6 +3645,20 @@ def main() -> int:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
             "library_call": rec.get("library_call")})
+    # the contrastive loss's kernels: replace no Pallas kernel (XLA fuses
+    # the loss); timed at the res16unet34d_lg.resident cell's level 0, and
+    # launched by trainer_path (b) alone
+    for name in trainer["contrast_launches"]:
+        rec = kernels[(name, CONTRAST_DIM)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "languagegroundedsemseg_torch/csrc/contrast.cu",
+            "replaces": "none: contrastive_language_loss's eager cosine "
+                        "arithmetic (losses/contrastive.py)",
+            "launches_trainer": trainer["contrast_launches"][name],
+            "width": CONTRAST_DIM, "rows": rec["rows"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"]})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

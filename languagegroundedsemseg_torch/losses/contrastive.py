@@ -12,6 +12,11 @@ Hinges: relu(d_pos - pos_thresh) + neg_weight * relu(neg_thresh - d_neg),
 ignored rows contribute 0 but still count in the mean denominator (the
 reference means over the full point tensor).
 
+On the card, the cosine distance against one anchor a class runs as one
+autograd node on hand-written kernels (``ops/contrastive.py``), which keeps
+per-row scalars where the eager arithmetic keeps (N, S, D) tensors; the
+CPU, the other distances and the attributed anchors stay eager.
+
 Each random draw is split from the arithmetic that uses it: the negatives'
 class ids (``negatives``) and the augmentation's per-category coins and
 attributes (``do_cat``, ``attr_cat``) can be passed in, and are drawn from
@@ -23,6 +28,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from languagegroundedsemseg_torch.ops.contrastive import contrastive_cos
 
 
 def _normalize(x, dim=-1, eps=1e-12):
@@ -47,6 +54,13 @@ def _pair_dist(feats, samples, kind: str):
         # Signed sum — intentional parity with the reference's l1 branch.
         return (feats[:, None, :] - samples).sum(dim=-1).mean(dim=-1)
     raise ValueError(f"unknown distance {kind!r}")
+
+
+def _takes_node(features, distance: str, attributed) -> bool:
+    """Whether the hinges run as the one autograd node of
+    ``ops/contrastive.py``: on the card, cosine distance, one anchor a
+    class. Nothing of size (N, S, D) is made there."""
+    return features.is_cuda and distance == "cos" and attributed is None
 
 
 def sample_negatives(
@@ -154,29 +168,32 @@ def contrastive_language_loss(
             attributed = anchors.to(torch.float32)
         anchors = anchors[:, 0, :]
     c = anchors.shape[0]
-    feats = features.to(torch.float32)
     anchors = anchors.to(torch.float32)
-
-    valid = labels != ignore_index
-    if row_mask is not None:
-        valid = valid & (row_mask > 0)
     safe = torch.clamp(labels.long(), 0, c - 1)
-
-    if attributed is not None:
-        slot = torch.clamp(pos_slot.long(), 0, attributed.shape[1] - 1)
-        pos = attributed[safe, slot][:, None, :]  # (N, 1, D)
-    else:
-        pos = anchors[safe][:, None, :]  # (N, 1, D)
     if negatives is None:
         negatives = sample_negatives(generator, safe, c, num_negatives)
-    neg = anchors[negatives.long()]  # (N, S, D)
 
-    zero = _zero(feats)
-    d_pos = torch.where(valid, _pair_dist(feats, pos, distance), zero)
-    d_neg = torch.where(valid, _pair_dist(feats, neg, distance), zero)
-
-    pos_loss = torch.where(valid, torch.relu(d_pos - pos_thresh), zero)
-    neg_loss = torch.where(valid, torch.relu(neg_thresh - d_neg), zero)
+    if _takes_node(features, distance, attributed):
+        pos_loss, neg_loss = contrastive_cos(
+            features, labels, anchors, negatives, row_mask=row_mask,
+            ignore_index=ignore_index, pos_thresh=pos_thresh,
+            neg_thresh=neg_thresh)
+    else:
+        feats = features.to(torch.float32)
+        valid = labels != ignore_index
+        if row_mask is not None:
+            valid = valid & (row_mask > 0)
+        if attributed is not None:
+            slot = torch.clamp(pos_slot.long(), 0, attributed.shape[1] - 1)
+            pos = attributed[safe, slot][:, None, :]  # (N, 1, D)
+        else:
+            pos = anchors[safe][:, None, :]  # (N, 1, D)
+        neg = anchors[negatives.long()]  # (N, S, D)
+        zero = _zero(feats)
+        d_pos = torch.where(valid, _pair_dist(feats, pos, distance), zero)
+        d_neg = torch.where(valid, _pair_dist(feats, neg, distance), zero)
+        pos_loss = torch.where(valid, torch.relu(d_pos - pos_thresh), zero)
+        neg_loss = torch.where(valid, torch.relu(neg_thresh - d_neg), zero)
 
     if reduction == "mean":
         denom = (

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_f = ctypes.c_float
 # name -> (source file, exported C function, argtypes)
 KERNELS = {
     "sel_fwd": ("sel_fwd.cu", "lgs_sel_fwd", [_vp] * 5 + [_i] * 9 + [_vp]),
@@ -42,6 +43,8 @@ KERNELS = {
     "onehot_variants": ("onehot_variants.cu", "lgs_onehot_variants",
                         [_vp] * 5 + [_i] * 9 + [_vp]),
     "bn": ("bn.cu", "lgs_bn_stats", [_vp] * 3 + [_i] * 7 + [_vp]),
+    "contrast": ("contrast.cu", "lgs_contrast_fwd",
+                 [_vp] * 8 + [_i] * 6 + [_f] * 2 + [_vp]),
 }
 
 _lock = threading.Lock()
