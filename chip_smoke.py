@@ -133,6 +133,10 @@ BN_ROWS, BN_CHANNELS, BN_FILL = 2_359_296, 96, 0.51
 # its capacity envelope's rows and fill, the decoder's width (3 negatives, 200
 # anchors)
 CONTRAST_ROWS, CONTRAST_DIM, CONTRAST_FILL = 917_504, 512, 0.67
+# the selector convs' masked-shift table in phase kernels: the widest f32
+# level-0 table of each benchmark cell, 34C's (its capacity envelope's rows,
+# 96 channels) and 34D's (its largest level-0 capacity, 512 channels)
+T3_SHAPES = ((2_359_296, 96), (1_048_576, 512))
 PARITY_POINTS, PARITY_CAP = 40_000, 32768
 TIMED_KERNEL_RUNS, TIMED_FWD_RUNS, TIMED_TRAIN_STEPS = 20, 5, 5
 TRAIN_LR = 0.01  # bench.py:163, sgd_torch(0.01)
@@ -688,7 +692,8 @@ def phase_kernels(graph, bw: float) -> dict:
     the widths Res16UNet50 (phase zoo_path) adds: ZOO_SEL_SHAPES,
     ZOO_CSUM_WIDTHS, ZOO_DW_SHAPES; and the batch norm's four kernels at
     BN_ROWS x BN_CHANNELS (``bn_records``); the contrastive loss's two
-    kernels at CONTRAST_ROWS x CONTRAST_DIM (``contrast_records``)."""
+    kernels at CONTRAST_ROWS x CONTRAST_DIM (``contrast_records``); the
+    masked-shift table's kernel at T3_SHAPES (``t3_records``)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for c_run, map_name in SEL_SHAPES:
@@ -710,6 +715,7 @@ def phase_kernels(graph, bw: float) -> dict:
 
     results.update(bn_records(gen))
     results.update(contrast_records(gen))
+    results.update(t3_records(gen))
 
     for key, rec in results.items():
         _bound(rec, bw)
@@ -901,6 +907,50 @@ def contrast_records(gen) -> dict:
                         "forward and backward",
         "library_ms": cuda_ms(lambda: step(False), TIMED_FWD_RUNS),
         "library_peak_extra_gib": extra_gib(False)}
+    return out
+
+
+def t3_records(gen) -> dict:
+    """The masked-shift table's kernel (``ops/shift_table.py``) at each of
+    T3_SHAPES from f32 x and masks of random patterns, held bit for bit to
+    its plain version (the eager expression it replaces), relaunched
+    bit-equal, then timed beside it. Bytes: x read once, the masks, the
+    (rows, 3c) bf16 table written once."""
+    from languagegroundedsemseg_torch.ops import cuda_kernels
+    from languagegroundedsemseg_torch.ops import shift_table as sto
+
+    out = {}
+    for rows, c in T3_SHAPES:
+        x = torch.randn((rows, c), device="cuda", generator=gen)
+        pattern = torch.randint(0, 8, (rows,), device="cuda", generator=gen)
+        mp, mn, mc = (((pattern >> k) & 1).to(torch.uint8) for k in range(3))
+
+        def kernel():
+            return sto.masked_shift_table_bf16(x, mp, mn, mc)
+
+        def plain():
+            return sto.masked_shift_table_reference(x, mp, mn, mc)
+
+        got = kernel()
+        if not torch.equal(got.view(torch.int16), plain().view(torch.int16)):
+            raise AssertionError(f"t3 rows={rows} c={c}: differs from the plain "
+                                 "version")
+        if not torch.equal(kernel().view(torch.int16), got.view(torch.int16)):
+            raise AssertionError("t3: a second launch differs from the first")
+        del got
+        out[("t3", c)] = {
+            "kernel": "t3", "rows": rows, "channels": c, "dtype": "float32",
+            "geometry": sto.t3_geometry(rows, c),
+            "ptxas": cuda_kernels.ptxas_usage("t3", "t3_kernelILi8EfE"),
+            "bit_equal_to_plain": True, "bit_equal_relaunch": True,
+            "bytes": rows * c * 4 + 3 * rows + rows * 3 * c * 2,
+            "operations": 0, "peak_ops_per_s": F32_OPS_PER_S,
+            "ms": cuda_ms(kernel, TIMED_KERNEL_RUNS),
+            "device_ms": queued_ms(kernel, TIMED_KERNEL_RUNS),
+            "host_ms": host_ms(kernel, 5 * TIMED_KERNEL_RUNS),
+            "plain_ms": cuda_ms(plain, TIMED_KERNEL_RUNS),
+            "plain_device_ms": queued_ms(plain, TIMED_KERNEL_RUNS)}
+        del x, pattern, mp, mn, mc
     return out
 
 
@@ -1396,17 +1446,20 @@ def _train_setup(model, device="cuda"):
 def phase_train_path(batch) -> dict:
     """SGD train steps on the 4-scene batch (well-conditioned weights: the
     bench's seeding puts logits near 1e10, where CE means nothing): one
-    warm-up, one step with launch accounting, TIMED_TRAIN_STEPS timed
-    steps. Loss and grad norm finite on every step, BN statistics moved,
+    warm-up, one step with launch accounting (the selector, batch-norm
+    and masked-shift-table kernels), TIMED_TRAIN_STEPS timed steps. Loss and grad norm finite on every step, BN statistics moved,
     and the last step's loss below the first's (the gradient's sign)."""
     from languagegroundedsemseg_torch.models.layers import SparseBatchNorm
     from languagegroundedsemseg_torch.ops import batch_norm as bno
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.ops import shift_table as sto
 
     model = scaled_model("cuda")
     step, state = _train_setup(model)
     want = expected_launches(model, batch.graph, train=True)
+    # the masked-shift table: one beside each sel_fwd (forward, dX) and dw
+    want_t3 = {"t3": want["sel_fwd"] + want["dw"]}
     # every norm's forward and backward: stats, combine, apply; reduce,
     # combine, apply
     norms = sum(isinstance(m, SparseBatchNorm) for m in model.modules())
@@ -1430,15 +1483,20 @@ def phase_train_path(batch) -> dict:
     oc.reset_launch_counts()
     oa.reset_launch_counts()
     bno.reset_launch_counts()
+    sto.reset_launch_counts()
     run()
     launches = dict(oc.launch_counts)
     ablation_launches = dict(oa.launch_counts)
     bn_launches = dict(bno.launch_counts)
+    t3_launches = dict(sto.launch_counts)
     if launches != want:
         raise AssertionError(f"train-step launches {launches}, expected {want}")
     if bn_launches != want_bn:
         raise AssertionError(f"train-step batch norm launches {bn_launches}, "
                              f"expected {want_bn}")
+    if t3_launches != want_t3:
+        raise AssertionError(f"train-step masked-shift table launches "
+                             f"{t3_launches}, expected {want_t3}")
     if any(ablation_launches.values()):
         raise AssertionError(
             f"ablation kernels on the train step: {ablation_launches}")
@@ -1458,7 +1516,7 @@ def phase_train_path(batch) -> dict:
            "losses": losses, "grad_norms": norms, "steps": state.step,
            "bn_stats_moved": moved, "launches": launches,
            "expected_launches": want, "ablation_launches": ablation_launches,
-           "bn_launches": bn_launches}
+           "bn_launches": bn_launches, "t3_launches": t3_launches}
     emit(rec)
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
@@ -1714,10 +1772,12 @@ def phase_e2e_path() -> dict:
     weights). E2E_WARMUP steps, then E2E_STEPS timed steps, each synced.
     Every timed step's launches equal ``expected_launches`` of its batch
     (counts set to 0 just before the step and read just after); loss and
-    grad norm finite. Then the transfer check. The workers' get_item and
+    grad norm finite; the masked-shift table's launches equal its
+    sel_fwd and dw launches. Then the transfer check. The workers' get_item and
     graph-build times come from wrapping those two calls here."""
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.ops import shift_table as sto
 
     model = scaled_model("cuda")
     step, state = _train_setup(model)
@@ -1747,6 +1807,7 @@ def phase_e2e_path() -> dict:
     per_step_launches, voxels, caps = [], [], []
     totals = {"sel_fwd": 0, "csum": 0, "dw": 0}
     oa.reset_launch_counts()
+    sto.reset_launch_counts()
     for i in range(E2E_STEPS):
         t0 = time.perf_counter()
         b = next(it)  # the workers build and copy ahead
@@ -1771,6 +1832,10 @@ def phase_e2e_path() -> dict:
         caps.append(b.graph.levels[0].capacity)
     peak = torch.cuda.max_memory_allocated()
     ablation_launches = dict(oa.launch_counts)
+    t3_launches = dict(sto.launch_counts)
+    if t3_launches != {"t3": totals["sel_fwd"] + totals["dw"]}:
+        raise AssertionError(f"e2e masked-shift table launches {t3_launches}, "
+                             f"expected sel_fwd + dw of {totals}")
     counters = loader.counters.snapshot()
     built = max(loader.counters.batches, 1)
     avg_scene_voxels = loader.counters.level_num_sum.get(0, 0) / built / E2E_BATCH
@@ -1810,6 +1875,7 @@ def phase_e2e_path() -> dict:
            "launches_per_step": per_step_launches,
            "launch_order": ["sel_fwd", "csum", "dw"],
            "launches": totals, "ablation_launches": ablation_launches,
+           "t3_launches": t3_launches,
            "losses": losses, "grad_norms": norms,
            "transfer_check": check}
     emit(rec)
@@ -1937,7 +2003,8 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
     to 0 just before it, checked just after against the launches of every
     train step and eval forward it ran (the contrastive loss's node: one
     forward and one backward a representation train step, one forward a
-    validation batch's loss, none in another mode). ``argv`` trains to epoch
+    validation batch's loss, none in another mode; the masked-shift table:
+    one beside each sel_fwd and dw). ``argv`` trains to epoch
     ``epochs``: the state must end at ``epochs`` x len(train_loader)
     steps, with a record for each epoch this run trained. ``keep_state``
     adds the final state dict (on the CPU) under ``"state"``; ``patches``
@@ -1946,6 +2013,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
     from languagegroundedsemseg_torch.ops import contrastive as ocn
     from languagegroundedsemseg_torch.ops import onehot_ablation as oa
     from languagegroundedsemseg_torch.ops import onehot_conv as oc
+    from languagegroundedsemseg_torch.ops import shift_table as sto
     from languagegroundedsemseg_torch.train import trainer as trainer_mod
 
     recording = _recording_trainer()
@@ -1959,6 +2027,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
     oc.reset_launch_counts()
     oa.reset_launch_counts()
     ocn.reset_launch_counts()
+    sto.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
         for p in patches:
@@ -1968,6 +2037,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
     main_s = time.perf_counter() - t0
     launches, ablation = dict(oc.launch_counts), dict(oa.launch_counts)
     contrast = dict(ocn.launch_counts)
+    t3 = dict(sto.launch_counts)
     (tr,) = recording.instances
     log_dir = tr.log_dir
     per_epoch = len(tr.train_loader)
@@ -1990,6 +2060,9 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
         raise AssertionError(f"{name}: contrastive launches {contrast}, expected "
                              f"{want_contrast} ({tr.n_train} train steps, "
                              f"{tr.n_eval_metrics} validation losses)")
+    if t3 != {"t3": launches["sel_fwd"] + launches["dw"]}:
+        raise AssertionError(f"{name}: masked-shift table launches {t3}, "
+                             f"expected sel_fwd + dw of {launches}")
     if tr.state.step != want_step:
         raise AssertionError(f"{name}: step {tr.state.step}, expected {want_step}")
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
@@ -2031,6 +2104,7 @@ def _trainer_run(name: str, argv: list, epochs: int, monitors: tuple,
             "checkpoints": [f for f in files if f.endswith(".ckpt")],
             "launches": launches, "expected_launches": tr.want,
             "ablation_launches": ablation, "contrast_launches": contrast,
+            "t3_launches": t3,
             **({"resumed": resumed} if resumed is not None else {}),
             **(extra(tr) if extra is not None else {}),
             **({"state": {k: v.detach().cpu().clone()
@@ -2077,7 +2151,8 @@ def phase_trainer_path() -> dict:
            "ablation_launches": {k: sum(r["ablation_launches"][k] for r in runs)
                                  for k in runs[0]["ablation_launches"]},
            "contrast_launches": {k: sum(r["contrast_launches"][k] for r in runs)
-                                 for k in runs[0]["contrast_launches"]}}
+                                 for k in runs[0]["contrast_launches"]},
+           "t3_launches": {"t3": sum(r["t3_launches"]["t3"] for r in runs)}}
     emit(rec)
     rec["baseline_state"] = baseline_state  # for phase ddp_path; not printed
     return rec
@@ -3657,6 +3732,21 @@ def main() -> int:
                         "arithmetic (losses/contrastive.py)",
             "launches_trainer": trainer["contrast_launches"][name],
             "width": CONTRAST_DIM, "rows": rec["rows"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"]})
+    # the masked-shift table's kernel: replaces no Pallas kernel (XLA fuses
+    # the table); timed at each cell's widest level-0 table
+    for rows_t3, c in T3_SHAPES:
+        rec = kernels[("t3", c)]
+        rows.append({
+            "name": "t3", "route": "cuda",
+            "source": "languagegroundedsemseg_torch/csrc/t3.cu",
+            "replaces": "none: the selector convs' eager masked-shift table "
+                        "_t3 (ops/msconv.py)",
+            "launches": train["t3_launches"]["t3"],
+            "launches_e2e": e2e["t3_launches"]["t3"],
+            "launches_trainer": trainer["t3_launches"]["t3"],
+            "width": c, "rows": rows_t3, "ms": rec["ms"],
             "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"]})
     emit({"kernels": rows})

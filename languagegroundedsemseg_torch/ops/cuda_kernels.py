@@ -45,6 +45,7 @@ KERNELS = {
     "bn": ("bn.cu", "lgs_bn_stats", [_vp] * 3 + [_i] * 7 + [_vp]),
     "contrast": ("contrast.cu", "lgs_contrast_fwd",
                  [_vp] * 8 + [_i] * 6 + [_f] * 2 + [_vp]),
+    "t3": ("t3.cu", "lgs_t3", [_vp] * 5 + [_i] * 3 + [_vp]),
 }
 
 _lock = threading.Lock()

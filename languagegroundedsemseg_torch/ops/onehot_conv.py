@@ -5,7 +5,8 @@ three kernels this module computes exactly what the reference computes
 outside its Pallas kernels:
 
 * ``onehot_window_conv`` (stride-1 k3 convs with a window annotation): the
-  bf16 masked-shift table T3, ONE bf16 projection GEMM
+  bf16 masked-shift table T3 (``ops/shift_table.py``, one kernel on the
+  card), ONE bf16 projection GEMM
   ``P = T3 @ [W_center | W_col1..8]``, the selector kernel ``sel_fwd``, and
   the overflow COO served from P (``_ov_from_pall``). Backward (``_oh_bwd``):
   dX is the same forward over T3(g) with mirrored, transposed weights (a
@@ -44,9 +45,9 @@ from languagegroundedsemseg_torch.ops.msconv import (
     _entry_cols,
     _ov_dw_pieces,
     _put_cols,
-    _t3,
     _wstack,
 )
+from languagegroundedsemseg_torch.ops.shift_table import masked_shift_table_bf16
 from languagegroundedsemseg_torch.ops.spconv import (
     _parent_fwd_impl,
     _slot_dw,
@@ -604,10 +605,10 @@ def _oh_fwd_impl(x, w, mp, mn, mc, anchors, wstart, ov_in, ov_out, ov_off,
     cap = x.shape[0]
     wstk = _wstack(w, cols)  # (G, 3C, c_out)
     n_cols = wstk.shape[0] - 1
-    # bf16 T3 straight from bf16 x: the masks are {0, 1}, so this equals
-    # the f32 table rounded to bf16. The guard row is not needed: P has
-    # exactly cap rows and the kernel never reads a guard anchor.
-    t3b = _t3(x.to(torch.bfloat16), mp, mn, mc)[:-1]
+    # bf16 T3 straight from x: the masks are {0, 1}, so this equals the
+    # f32 table rounded to bf16. No guard row: P has exactly cap rows and
+    # the kernel never reads a guard anchor.
+    t3b = masked_shift_table_bf16(x.contiguous(), mp, mn, mc)
     wall = torch.cat(list(wstk), dim=1).to(torch.bfloat16)
     pall = t3b @ wall  # (cap, 9 * c_out) bf16, f32 accumulate
     acc = sel_fwd(wstart, anchors, mc, pall, n_cols, tile, win)
@@ -625,7 +626,7 @@ def _oh_dw_impl(x, g32, m, inv_anchors, k_num):
     dw = [None] * k_num
     # bf16 T3 and g for the center contraction too, with f32 products and
     # sums, as the kernel does for the other 8 columns
-    t3b = _t3(x.to(torch.bfloat16), m.mp, m.mn, m.mc)[:-1]
+    t3b = masked_shift_table_bf16(x.contiguous(), m.mp, m.mn, m.mc)
     gb = g32.to(torch.bfloat16)
     _put_cols(dw, cols[0], c,
               t3b.to(torch.float32).t() @ gb.to(torch.float32))

@@ -36,6 +36,7 @@ CATEGORIES = (
     ("dw", ("dw_kernel", "dw_reduce_kernel")),
     ("batch_norm", ("bn_stats_kernel", "bn_combine_kernel", "bn_apply_kernel",
                     "bn_bwd_reduce_kernel", "bn_bwd_apply_kernel")),
+    ("t3", ("t3_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "splitK")),
     ("gather_scatter", ("index", "gather", "scatter", "roll")),
     ("elementwise", ("elementwise", "vectorized", "reduce", "cat")),

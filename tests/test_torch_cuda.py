@@ -35,7 +35,15 @@ f32 and bf16 features, to 1e-5 of each quantity's scale (a bf16 df to one
 bf16 unit), a second launch bit-equal; a 34D representation step launches
 each once; and a 34D pretraining step at batch 8 through the node agrees
 with the same step through the eager loss on the card within the
-benchmark cell's ``loss_gap`` limit and res16unet34c's ``grad_gap``.
+benchmark cell's ``loss_gap`` limit and res16unet34c's ``grad_gap``. The
+masked-shift table's kernel (``ops/shift_table.py``) is held bit for bit
+to its plain version (the eager expression it replaces) at the cells'
+level-0 shapes and small and odd ones, with negatives, signed zeros,
+subnormals, infinities and NaNs (NaN where the plain version has NaN) and
+every mask pattern, the wraparound rows unmasked; a second launch
+bit-equal; a 34C train step launches it once for each selector conv's
+forward, dX and dW, and gives the same loss and gradients as the step
+with the table forced onto its eager path.
 """
 
 import collections
@@ -52,6 +60,7 @@ import torch
 from languagegroundedsemseg_torch.ops import batch_norm as bno
 from languagegroundedsemseg_torch.ops import onehot_ablation as oa
 from languagegroundedsemseg_torch.ops import onehot_conv as oc
+from languagegroundedsemseg_torch.ops import shift_table as sto
 from languagegroundedsemseg_torch.sparse import graph_host as gh
 from languagegroundedsemseg_torch.sparse.offsets import ConvKind
 from oracles import make_cloud
@@ -1090,6 +1099,7 @@ def test_kernel_spans_match_launches_and_stay_off_the_device_ops():
     torch.cuda.synchronize()
     before = dict(oc.launch_counts)
     before_bn = dict(bno.launch_counts)
+    before_t3 = dict(sto.launch_counts)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function("lgs.test.window"):
@@ -1097,6 +1107,7 @@ def test_kernel_spans_match_launches_and_stay_off_the_device_ops():
             torch.cuda.synchronize()
     launched = {k: oc.launch_counts[k] - n for k, n in before.items()}
     launched.update({k: bno.launch_counts[k] - n for k, n in before_bn.items()})
+    launched.update({k: sto.launch_counts[k] - n for k, n in before_t3.items()})
     events = list(prof.profiler.kineto_results.events())
     on_host = collections.Counter(
         e.name() for e in events
@@ -1108,9 +1119,11 @@ def test_kernel_spans_match_launches_and_stay_off_the_device_ops():
     print(launched, images)  # shown by pytest -rP
     assert launched["sel_fwd"] > 0 and launched["dw"] > 0
     assert launched["bn_stats"] > 0 and launched["bn_bwd_apply"] > 0
+    assert launched["t3"] == launched["sel_fwd"] + launched["dw"]
     for k, n in launched.items():
         assert on_host[f"lgs.kernel.{k}"] == n, k
     assert images["lgs.kernel.sel_fwd"] > 0 and images["lgs.kernel.bn_apply"] > 0
+    assert images["lgs.kernel.t3"] > 0
     tr = _trace_reader().read_profile(prof, "lgs.test.window")
     assert tr.device and tr.busy_s() > 0
     assert not [n for n, _, _ in tr.device if "lgs." in n]
@@ -1455,3 +1468,154 @@ def test_34d_pretraining_step_on_the_node_within_the_judges_limits(monkeypatch):
                       "grad_worst": max(gaps)}))
     assert loss_gap <= limits["loss_gap"]
     assert float(np.median(gaps)) <= grad_limit
+
+
+# ---- the masked-shift table's kernel -----------------------------------------
+
+# the 34C cell's level 0 (f32 forward and dW at 96), the 34D cell's widest
+# level-0 conv (f32, 544 = 512 + 32) and a bf16 configuration's 512-wide one,
+# a level-4 width, and the stem's 3 channels on an odd row count
+T3_SHAPES = [(2_359_296, 96, torch.float32), (1_048_576, 544, torch.float32),
+             (917_504, 512, torch.bfloat16), (13_312, 256, torch.float32),
+             (4_099, 3, torch.float32)]
+# 60,000-point scenes, 4 a batch: every one of 34C's 47 selector convs has a
+# windowed map (93 sel_fwd, 47 dw a train step)
+T3_STEP_SCENES, T3_STEP_POINTS = 4, 60_000
+T3_SELECTOR_CONVS = 47
+
+
+def _t3_inputs(rows, c, dtype, dev, seed=0):
+    """x of normal values mixed with negatives' and positives' edge cases
+    (signed zeros, f32 and bf16 subnormals, +-inf, NaN, ties of the bf16
+    rounding, a value that rounds to inf) and masks of all eight (mp, mn,
+    mc) patterns, rows 0 and rows - 1 unmasked so that the wraparound
+    shows."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 4 * torch.randn((rows, c), generator=gen, device=dev)
+    special = torch.tensor(
+        [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40, -1e-40,
+         1.5e-45, 9.2e-41, -3e-39, 1.00390625, -1.01171875, 3.4028235e38],
+        device=dev)
+    pick = torch.randint(0, 4 * special.numel(), (rows, c), generator=gen,
+                         device=dev)
+    x = torch.where(pick < special.numel(),
+                    special[pick.clamp(max=special.numel() - 1)], x).to(dtype)
+    pattern = torch.randint(0, 8, (rows,), generator=gen, device=dev)
+    pattern[0] = pattern[-1] = 7
+    masks = [((pattern >> k) & 1).to(torch.uint8) for k in range(3)]
+    return x, *masks
+
+
+def _bits(t):
+    """t's bf16 bit patterns, NaNs as 0 (NaN payloads are not the
+    contract), and where t is NaN."""
+    nan = torch.isnan(t)
+    return torch.where(nan, 0, t.view(torch.int16)), nan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c,dtype", T3_SHAPES)
+def test_t3_kernel_bit_equal_to_plain_version(rows, c, dtype):
+    dev = _card()
+    x, mp, mn, mc = _t3_inputs(rows, c, dtype, dev)
+    before = sto.launch_counts["t3"]
+    got = sto.masked_shift_table_bf16(x, mp, mn, mc)
+    want = sto.masked_shift_table_reference(x, mp, mn, mc)
+    assert sto.launch_counts["t3"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, 3 * c)
+    got_bits, got_nan = _bits(got)
+    want_bits, want_nan = _bits(want)
+    assert bool(want_nan.any())
+    assert torch.equal(got_nan, want_nan)
+    assert torch.equal(got_bits, want_bits)
+    again = sto.masked_shift_table_bf16(x, mp, mn, mc)
+    assert torch.equal(again.view(torch.int16), got.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,c,dtype", T3_SHAPES)
+def test_t3_plan_covers_the_shapes(rows, c, dtype):
+    _card()
+    geo = sto.t3_geometry(rows, c, dtype)
+    assert geo["vec"] == (8 if c % 8 == 0 else 1)
+    assert geo["vec"] * geo["vecs"] == c
+    items = -(-rows // geo["rows_per_thread"]) * geo["vecs"]
+    assert (geo["blocks"] - 1) * geo["threads"] < items <= geo["blocks"] * geo["threads"]
+    assert geo["blocks_per_sm"] >= 4
+
+
+def _34c_t3_step(dev, batch, monkeypatch, kernel: bool):
+    """One Res16UNet34C train step on ``batch``; ``kernel`` False sends the
+    masked-shift table through its eager expression on the card. Returns
+    the loss, every leaf's gradient, and the table's and the selector
+    kernels' launches."""
+    from languagegroundedsemseg_torch.losses.classification import cross_entropy_loss
+    from languagegroundedsemseg_torch.models.res16unet import Res16UNet34C
+    from languagegroundedsemseg_torch.train.solvers import sgd_torch
+    from languagegroundedsemseg_torch.train.state import TrainState
+    from languagegroundedsemseg_torch.train.step import make_train_step
+
+    monkeypatch.setattr(oc, "masked_shift_table_bf16",
+                        sto.masked_shift_table_bf16 if kernel
+                        else sto.masked_shift_table_reference)
+    model = Res16UNet34C(out_channels=20, device=dev,
+                         generator=torch.Generator().manual_seed(0))
+    opt = sgd_torch(model.parameters(), 0.01)
+
+    def objective(logits, _f, b, _g, row_mask):
+        return cross_entropy_loss(logits, b.labels, 255, row_mask=row_mask), {}
+
+    step = make_train_step(model, opt, objective, device=dev)
+    sto.reset_launch_counts()
+    oc.reset_launch_counts()
+    _, metrics = step(TrainState(model, opt), batch)
+    torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    return (float(metrics["loss"]), grads, dict(sto.launch_counts),
+            dict(oc.launch_counts))
+
+
+@pytest.mark.cuda
+def test_34c_train_step_on_the_t3_kernel_matches_the_eager_table(monkeypatch):
+    """A 34C train step on a batch where all 47 selector convs are
+    windowed launches the table's kernel 47 times for the forwards, 46 for
+    the dXs (the stem's input gets no gradient) and 47 for the dWs: 140,
+    one beside each sel_fwd and dw launch. Its loss and gradients equal
+    the same step's with the table on its eager path, as two eager steps
+    equal each other: with deterministic algorithms on, ``index_add_``
+    takes no atomics, so the gap two eager steps show is 0 and the kernel's
+    step has to match bit for bit."""
+    from languagegroundedsemseg_torch.data.batching import BatchBuilder
+    from languagegroundedsemseg_torch.data.synthetic import voxelize_scene
+    from languagegroundedsemseg_torch.models.res16unet import res16unet_graph_spec
+
+    dev = _card()
+    rng = np.random.default_rng(23)
+    batch = BatchBuilder(spec=res16unet_graph_spec()).build(
+        [voxelize_scene(rng, T3_STEP_POINTS) for _ in range(T3_STEP_SCENES)],
+        device=dev)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = [_34c_t3_step(dev, batch, monkeypatch, kernel)
+                for kernel in (False, True, False, True)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (e_loss, e_grads, e_t3, e_oc), (k_loss, k_grads, k_t3, k_oc) = runs[:2]
+    assert e_t3 == {"t3": 0}
+    assert k_oc == e_oc == {"sel_fwd": 2 * T3_SELECTOR_CONVS - 1, "csum": 8,
+                            "dw": T3_SELECTOR_CONVS}
+    assert k_t3 == {"t3": 3 * T3_SELECTOR_CONVS - 1}
+    assert k_t3["t3"] == k_oc["sel_fwd"] + k_oc["dw"]
+
+    def gaps(a, b):
+        return [abs(a[0] - b[0])] + [
+            float((a[1][n] - b[1][n]).abs().max()) for n in sorted(a[1])]
+
+    eager_gap = max(gaps(runs[0], runs[2]))
+    kernel_gaps = gaps(runs[1], runs[0]) + gaps(runs[3], runs[2])
+    print(json.dumps({"eager_gap": eager_gap, "kernel_gap": max(kernel_gaps),
+                      "loss": k_loss}))
+    assert set(k_grads) == set(e_grads)
+    assert max(kernel_gaps) <= eager_gap
